@@ -233,18 +233,17 @@ class KFACComputer:
         G_pred = self._unflatten_rows(G_rows, tuple(pred.shape))
 
         # ONE batched backward over all V grad-output vectors
+        def vjp(g_pred):
+            grads = torch.autograd.grad(pred, deltas, g_pred, retain_graph=True, allow_unused=True)
+            return [torch.zeros_like(d) if g is None else g for g, d in zip(grads, deltas)]
+
         if G_pred.shape[0] == 1:
-            grads = torch.autograd.grad(pred, deltas, G_pred[0], allow_unused=True)
-            grads = [None if g is None else g[None] for g in grads]
+            grads = [g[None] for g in vjp(G_pred[0])]
         else:
-            grads = torch.autograd.grad(
-                pred, deltas, G_pred, is_grads_batched=True, allow_unused=True
-            )
-        V = G_pred.shape[0]
-        grads = [
-            torch.zeros((V, *d.shape), dtype=d.dtype, device=d.device) if g is None else g
-            for g, d in zip(grads, deltas)
-        ]
+            # torch.func.vmap, not is_grads_batched: the latter's legacy
+            # batching hands batched tensors to a custom Function's backward
+            # (flash attention's kernels), bypassing its vmap rule
+            grads = torch.func.vmap(vjp)(G_pred)
 
         ggT = {}
         for gi, group in enumerate(self.groups):

@@ -6,7 +6,7 @@ convolution, which never materializes the ``[B, Ho*Wo, KH*KW*C]`` patch
 tensor. The kernel is CUDA C++ for ``sm_90a``
 (``csrc/conv_input_covariance.cu``; its header says what bounds it and how it
 is laid out), compiled with ``nvcc`` into a shared library at first use and
-called through ``ctypes``.
+called through ``ctypes`` (:mod:`curvlinops_tpu_torch.utils.cuda_build`).
 
 :func:`conv_input_covariance` launches the kernel for a CUDA tensor and
 raises on anything it does not take; for a CPU tensor it computes
@@ -21,82 +21,27 @@ lives in device memory, so the gate keeps only the geometry conditions.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
 
 import torch
 
 from curvlinops_tpu_torch.curvature.loss_hessian import KFACType
 from curvlinops_tpu_torch.kfac import math as kmath
+from curvlinops_tpu_torch.utils import cuda_build
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "conv_input_covariance.cu"
-# the build goes next to the package, in the checkout's ignored build/ dir
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+SOURCE = Path(__file__).resolve().parent / "csrc" / "conv_input_covariance.cu"
 _TILE = 64  # output tile edge of the kernel
 _BK = 16  # rows per shared-memory slab of the kernel
 _MIN_ROWS_PER_SPLIT = 2048
 
-_library: ctypes.CDLL | None = None
 
-
-def build_kernel(build_dir: Path = BUILD_DIR) -> tuple[Path, float, str]:
-    """Compile the kernel's source with ``nvcc`` for ``sm_90a``.
-
-    The library's name carries a hash of the source and flags, so an edited
-    source is rebuilt; an existing build is reused.
-
-    Returns:
-        ``(library path, build seconds, compiler output)``; the seconds are
-        0 and the output empty when the library already existed.
-
-    Raises:
-        RuntimeError: If ``nvcc`` is missing or the compilation fails.
-    """
-    src = _SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = build_dir / f"conv_input_covariance-{digest}.so"
-    if lib_path.exists():
-        return lib_path, 0.0, ""
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    nvcc = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH.")
-    build_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, str(_SOURCE)], capture_output=True, text=True
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.conv_input_covariance
+    fn.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
     )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib_path)  # atomic: a concurrent build never sees a partial file
-    return lib_path, seconds, proc.stdout + proc.stderr
-
-
-def _load_library() -> ctypes.CDLL:
-    global _library
-    if _library is None:
-        lib = ctypes.CDLL(str(build_kernel()[0]))
-        fn = lib.conv_input_covariance
-        fn.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        _library = lib
-    return _library
+    fn.restype = ctypes.c_int
 
 
 def _geometry(x_shape: tuple, meta: dict) -> dict | None:
@@ -188,7 +133,7 @@ def conv_input_covariance(
     tiles = -(-d // _TILE)
     splits, rows_per_split = _splits(tiles * (tiles + 1) // 2, R, x.device)
 
-    lib = _load_library()
+    lib = cuda_build.load(SOURCE, _bind)
     x_nhwc = x.permute(0, 2, 3, 1).contiguous()
     ws = torch.empty((splits, d, d), dtype=torch.float32, device=x.device)
     out = torch.empty((d, d), dtype=x.dtype, device=x.device)

@@ -1,11 +1,14 @@
-"""Shared model utilities: initializers and problem containers."""
+"""Shared model utilities: problem container, initializers, device choice,
+and the mapping of parameters between the JAX package and the port."""
 
 from __future__ import annotations
 
 import math
+import re
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -32,3 +35,109 @@ def he_normal(
 ) -> torch.Tensor:
     """He-normal initialization (drawn on the CPU from ``generator``)."""
     return torch.randn(shape, generator=generator, dtype=dtype) * math.sqrt(2.0 / fan_in)
+
+
+def lecun_normal(
+    shape: tuple, fan_in: int, generator: torch.Generator, dtype=torch.float32
+) -> torch.Tensor:
+    """LeCun-normal initialization (drawn on the CPU from ``generator``)."""
+    return torch.randn(shape, generator=generator, dtype=dtype) * math.sqrt(1.0 / fan_in)
+
+
+def resolve_device(device) -> torch.device:
+    """The device a problem is built on; the problems default to ``"cuda"``.
+
+    Raises:
+        RuntimeError: If a CUDA device is asked for and none is available
+            (there is no fallback to the CPU: pass ``device="cpu"``).
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} asks for a CUDA device, and none is "
+            "available; pass device='cpu' to build on the CPU."
+        )
+    return device
+
+
+# ---------------------------------------------------------------------- #
+# weights and parameter-space vectors across from the JAX package
+# ---------------------------------------------------------------------- #
+_KEYSTR = re.compile(r"\['([^']*)'\]")
+_LEAF_TO_TORCH = {"W": "weight", "b": "bias"}
+_LEAF_TO_JAX = {"weight": "W", "bias": "b"}
+
+
+def _jax_paths(tree: dict, prefix: tuple = ()) -> dict[tuple, Any]:
+    """Flatten a nested dict (or a ``keystr``-keyed flat dict) to key paths."""
+    out = {}
+    for k, v in tree.items():
+        path = prefix + (tuple(_KEYSTR.findall(k)) if k.startswith("[") else (k,))
+        if isinstance(v, dict):
+            out.update(_jax_paths(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def _owner(model: nn.Module, name: str) -> nn.Module:
+    return model.get_submodule(name.rpartition(".")[0])
+
+
+def _layout_to_torch(t: torch.Tensor, owner: nn.Module, leaf: str) -> torch.Tensor:
+    """One leaf from the JAX layout: conv HWIO -> OIHW, dense ``[in, out]``
+    -> ``[out, in]``; everything else (biases, embedding tables, norm
+    ``scale``/``bias``) passes unchanged."""
+    if leaf == "weight" and isinstance(owner, nn.Conv2d):
+        return t.permute(3, 2, 0, 1)
+    if leaf == "weight" and isinstance(owner, nn.Linear):
+        return t.T
+    return t
+
+
+def from_jax_params(params_np: dict, model: nn.Module) -> dict[str, torch.Tensor]:
+    """Map a JAX parameter tree of numpy arrays to the model's named tensors.
+
+    Accepts a nested dict (``init_resnet``, ``init_gpt``) or the
+    ``keystr``-keyed flat dict of ``kfac_restricted``. ``W``/``b`` leaves of
+    convs and dense layers become ``weight``/``bias``; each leaf is mapped by
+    the module that owns it (:func:`_layout_to_torch`). Works for
+    parameter-space vectors too.
+
+    Raises:
+        KeyError: For a path the model has no parameter for.
+        ValueError: For a shape that does not match the model's.
+    """
+    named = dict(model.named_parameters())
+    out = {}
+    for path, arr in _jax_paths(params_np).items():
+        name = ".".join(path[:-1] + (_LEAF_TO_TORCH.get(path[-1], path[-1]),))
+        if name not in named:
+            raise KeyError(f"JAX path {path} maps to {name!r}, not a model parameter.")
+        leaf = name.rpartition(".")[2]
+        t = _layout_to_torch(torch.from_numpy(np.array(arr)), _owner(model, name), leaf)
+        ref = named[name]
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} vs model {tuple(ref.shape)}.")
+        out[name] = t.contiguous().to(device=ref.device, dtype=ref.dtype)
+    return out
+
+
+def to_jax_params(named: dict[str, torch.Tensor], model: nn.Module) -> dict:
+    """Inverse of :func:`from_jax_params`: a nested dict of numpy arrays."""
+    tree: dict = {}
+    for name, t in named.items():
+        *prefix, leaf = name.split(".")
+        owner = _owner(model, name)
+        arr = t.detach().float().cpu()
+        if leaf == "weight" and isinstance(owner, nn.Conv2d):
+            arr = arr.permute(2, 3, 1, 0)
+        elif leaf == "weight" and isinstance(owner, nn.Linear):
+            arr = arr.T
+        if isinstance(owner, (nn.Conv2d, nn.Linear)):
+            leaf = _LEAF_TO_JAX[leaf]
+        node = tree
+        for k in prefix:
+            node = node.setdefault(k, {})
+        node[leaf] = arr.contiguous().numpy()
+    return tree

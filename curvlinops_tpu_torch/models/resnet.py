@@ -5,7 +5,8 @@ NCHW and kernels OIHW (PyTorch's layouts); parameter names follow the JAX
 pytree paths (``layer2.block0.downsample.conv.weight`` for
 ``['layer2']['block0']['downsample']['conv']['W']``), and
 :func:`from_jax_params` / :func:`to_jax_params` carry weights and
-parameter-space vectors between the two packages.
+parameter-space vectors between the two packages (re-exported from
+:mod:`~curvlinops_tpu_torch.models.common`).
 
 The JAX model pads its convolutions ``"SAME"``, which is asymmetric for
 stride 2: the 7x7/s2 stem pads ``(2, 3)`` on a 32x32 input and every 3x3/s2
@@ -22,16 +23,19 @@ folds one batch's statistics into it.
 from __future__ import annotations
 
 import math
-import re
-from typing import Any
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from curvlinops_tpu_torch.losses import CrossEntropyLoss
-from curvlinops_tpu_torch.models.common import Problem, he_normal
+from curvlinops_tpu_torch.models.common import (  # noqa: F401  (mapping re-exported)
+    Problem,
+    from_jax_params,
+    he_normal,
+    resolve_device,
+    to_jax_params,
+)
 
 _BN_EPS = 1e-5
 
@@ -180,10 +184,13 @@ def init_resnet(
     num_classes: int,
     generator: torch.Generator,
     dtype=torch.float32,
-    device=None,
+    device="cuda",
 ) -> ResNet:
     """Build a ResNet with He-normal conv/linear weights, zero biases and
-    identity BatchNorm, drawn on the CPU from ``generator``."""
+    identity BatchNorm, drawn on the CPU from ``generator`` and moved to
+    ``device`` (a CUDA device unless the caller asks for the CPU; raises
+    without one, :func:`~curvlinops_tpu_torch.models.common.resolve_device`)."""
+    device = resolve_device(device)
     cfg = _CONFIGS[arch]
     model = ResNet(cfg["block"], cfg["layers"], cfg["widths"], num_classes)
     with torch.no_grad():
@@ -269,6 +276,7 @@ def kfac_restricted(
 
 
 def _problem(name, arch, num_classes, batch_size, hw, calib, seed, dtype, device):
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     model = init_resnet(arch, num_classes, gen, dtype, device)
     X = torch.rand((batch_size, 3, hw, hw), generator=gen, dtype=dtype).to(device)
@@ -283,7 +291,7 @@ def _problem(name, arch, num_classes, batch_size, hw, calib, seed, dtype, device
 
 
 def cifar10_resnet18(
-    batch_size: int = 512, seed: int = 0, dtype=torch.float32, device=None
+    batch_size: int = 512, seed: int = 0, dtype=torch.float32, device="cuda"
 ) -> Problem:
     """ResNet-18 on synthetic CIFAR-10 (3x32x32, 10 classes)."""
     return _problem(
@@ -293,81 +301,10 @@ def cifar10_resnet18(
 
 
 def imagenet_resnet50(
-    batch_size: int = 64, seed: int = 0, dtype=torch.float32, device=None
+    batch_size: int = 64, seed: int = 0, dtype=torch.float32, device="cuda"
 ) -> Problem:
     """ResNet-50 on synthetic ImageNet (3x224x224, 1000 classes)."""
     return _problem(
         "synthetic_imagenet_resnet50", "resnet50", 1000, batch_size, 224,
         min(batch_size, 32), seed, dtype, device,
     )
-
-
-# ---------------------------------------------------------------------- #
-# weights and parameter-space vectors across from the JAX package
-# ---------------------------------------------------------------------- #
-_KEYSTR = re.compile(r"\['([^']*)'\]")
-
-
-def _jax_paths(tree: dict, prefix: tuple = ()) -> dict[tuple, Any]:
-    """Flatten a nested dict (or a ``keystr``-keyed flat dict) to key paths."""
-    out = {}
-    for k, v in tree.items():
-        path = prefix + (tuple(_KEYSTR.findall(k)) if k.startswith("[") else (k,))
-        if isinstance(v, dict):
-            out.update(_jax_paths(v, path))
-        else:
-            out[path] = v
-    return out
-
-
-def _owner(model: nn.Module, name: str) -> nn.Module:
-    return model.get_submodule(name.rpartition(".")[0])
-
-
-def from_jax_params(params_np: dict, model: nn.Module) -> dict[str, torch.Tensor]:
-    """Map a JAX parameter tree of numpy arrays to the model's named tensors.
-
-    Accepts the nested dict of ``init_resnet`` or the ``keystr``-keyed flat
-    dict of ``kfac_restricted``; maps ``W``/``b`` leaves to
-    ``weight``/``bias``, HWIO kernels to OIHW and dense ``[in, out]`` to
-    ``[out, in]``. Works for parameter-space vectors too.
-
-    Raises:
-        KeyError: For a path the model has no parameter for.
-        ValueError: For a shape that does not match the model's.
-    """
-    named = dict(model.named_parameters())
-    out = {}
-    for path, arr in _jax_paths(params_np).items():
-        name = ".".join(path[:-1] + ({"W": "weight", "b": "bias"}.get(path[-1], path[-1]),))
-        if name not in named:
-            raise KeyError(f"JAX path {path} maps to {name!r}, not a model parameter.")
-        t = torch.from_numpy(np.array(arr))
-        if t.ndim == 4:
-            t = t.permute(3, 2, 0, 1)
-        elif t.ndim == 2:
-            t = t.T
-        ref = named[name]
-        if tuple(t.shape) != tuple(ref.shape):
-            raise ValueError(f"{name}: shape {tuple(t.shape)} vs model {tuple(ref.shape)}.")
-        out[name] = t.contiguous().to(device=ref.device, dtype=ref.dtype)
-    return out
-
-
-def to_jax_params(named: dict[str, torch.Tensor], model: nn.Module) -> dict:
-    """Inverse of :func:`from_jax_params`: a nested dict of numpy arrays."""
-    tree: dict = {}
-    for name, t in named.items():
-        *prefix, leaf = name.split(".")
-        if isinstance(_owner(model, name), (nn.Conv2d, nn.Linear)):
-            leaf = {"weight": "W", "bias": "b"}[leaf]
-        arr = t.detach().float().cpu()
-        if arr.ndim == 4:
-            arr = arr.permute(2, 3, 1, 0)
-        elif arr.ndim == 2:
-            arr = arr.T
-        node = tree
-        for k in prefix:
-            node = node.setdefault(k, {})
-        node[leaf] = arr.contiguous().numpy()
-    return tree

@@ -1,4 +1,5 @@
-"""Library utilities: tree flattening and tree arithmetic."""
+"""Library utilities: tree flattening and tree arithmetic; the CUDA kernel
+build helper is :mod:`curvlinops_tpu_torch.utils.cuda_build`."""
 
 from curvlinops_tpu_torch.utils.flatten import (
     TensorSpec,

@@ -1,4 +1,7 @@
-"""The Hopper conv-covariance kernel on a CUDA device, against its plain version.
+"""The Hopper kernels on a CUDA device, against their plain versions.
+
+The conv-covariance kernel (``kfac/kernels.py``) and the three flash-attention
+kernels (``models/flash_attention.py``: forward, ``bwd_dkv``, ``bwd_dq``).
 
 These tests need the card: they skip without one. The card's machine has no
 JAX, so this file imports only the port, and runs there without the suite's
@@ -15,6 +18,8 @@ import torch
 from curvlinops_tpu_torch.kfac import kernels
 from curvlinops_tpu_torch.kfac.operator import KFACLinearOperator
 from curvlinops_tpu_torch.losses import CrossEntropyLoss
+from curvlinops_tpu_torch.models import flash_attention as tfa
+from curvlinops_tpu_torch.models import gpt as tgpt
 from curvlinops_tpu_torch.models.resnet import ResNet, same_pads
 
 # (kernel, stride, input size): 3x3/s1 pads (1, 1); 3x3/s2 pads (0, 1), the
@@ -108,3 +113,97 @@ def test_kfac_factors_kernel_path_match_plain_path(cuda):
         assert launches == (n_convs - 1 if use_kernel else 0)
     for gi, aaT in ops[True]._aaT.items():
         assert rel_err(aaT, ops[False]._aaT[gi]) < 1e-5
+
+
+# ---------------------------------------------------------------------- #
+# flash attention
+# ---------------------------------------------------------------------- #
+def _qkv_do(shape, device, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(device, dtype) for _ in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 3, 200, 64), (1, 2, 1024, 64), (2, 2, 77, 16)],
+                         ids=["T200", "T1024", "T77hd16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_kernels_match_plain(cuda, shape, dtype, causal):
+    """Each of the three kernels against its plain version, at ragged and
+    full tiles: relative Frobenius error below 1e-4 in float32 (sums in
+    another order), below 1e-2 in bfloat16 (both round float32 results to
+    bfloat16, and the plain backward rounds its inputs' products again)."""
+    q, k, v, do = _qkv_do(shape, cuda, dtype)
+    scale = shape[-1] ** -0.5
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    o, lse = tfa.flash_attention_fwd_kernel(q, k, v, causal=causal, sm_scale=scale)
+    o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, causal=causal, sm_scale=scale)
+    di = (o_ref.float() * do.float()).sum(-1)
+    dk, dv = tfa.flash_attention_bwd_dkv_kernel(q, k, v, do, lse_ref, di, causal=causal, sm_scale=scale)
+    dq = tfa.flash_attention_bwd_dq_kernel(q, k, v, do, lse_ref, di, causal=causal, sm_scale=scale)
+    refs = tfa.flash_attention_bwd_plain(q, k, v, o_ref, lse_ref, do, causal=causal, sm_scale=scale)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    for name, a, b in (("o", o, o_ref), ("lse", lse, lse_ref), ("dq", dq, refs[0]),
+                       ("dk", dk, refs[1]), ("dv", dv, refs[2])):
+        assert rel_err(a, b) < tol, name
+
+
+@pytest.mark.cuda
+def test_flash_function_launch_counters(cuda):
+    """A forward and a backward through the Function launch each kernel once;
+    a vmapped backward over 3 vectors launches each backward kernel once."""
+    q, k, v, do = _qkv_do((1, 2, 96, 32), cuda, torch.float32)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = dict(tfa.launches)
+    o = tfa.flash_attention(q, k, v, sm_scale=0.2)
+    grads = torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+    assert {n: tfa.launches[n] - before[n] for n in before} == {"fwd": 1, "bwd_dkv": 1, "bwd_dq": 1}
+    dos = torch.stack([do, 2 * do, -do])
+    batched = torch.func.vmap(lambda g: torch.autograd.grad(o, (q, k, v), g, retain_graph=True))(dos)
+    assert {n: tfa.launches[n] - before[n] for n in before} == {"fwd": 1, "bwd_dkv": 2, "bwd_dq": 2}
+    for g_b, g in zip(batched, grads):
+        assert rel_err(g_b[1], 2 * g) < 1e-5
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_what_they_cannot_take(cuda):
+    """On a CUDA tensor the Function launches or raises: never the plain
+    version instead."""
+    x = torch.zeros((1, 1, 16, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(x, x, x, sm_scale=0.125)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(x.double(), x.double(), x.double(), sm_scale=0.125)
+    with pytest.raises(ValueError, match="Head dim"):
+        y = torch.zeros((1, 1, 16, 48), device=cuda)
+        tfa.flash_attention(y, y, y, sm_scale=0.125)
+    with pytest.raises(ValueError):
+        y = torch.zeros((16, 64), device=cuda)
+        tfa.flash_attention(y, y, y, sm_scale=0.125)
+
+
+@pytest.mark.cuda
+def test_gpt_kfac_flash_matches_einsum(cuda):
+    """A small GPT's KFAC factors (empirical Fisher) through the flash
+    kernels agree with the einsum path's (relative Frobenius error below
+    1e-4), and each layer launches each kernel."""
+    config = tgpt.GPTConfig(block_size=200, vocab_size=64, n_layer=2, n_head=2, n_embd=64)
+    ops = {}
+    for impl in ("flash", "einsum"):
+        problem = tgpt.shakespeare_nanogpt(batch_size=2, config=config, device=cuda, attention_impl=impl)
+        before = dict(tfa.launches)
+        ops[impl] = KFACLinearOperator(
+            problem.model, problem.loss_fn, problem.kfac_params, problem.data,
+            fisher_type="empirical",
+        )
+        launched = {n: tfa.launches[n] - before[n] for n in before}
+        # forwards: layer discovery, the determinism probe's two passes and
+        # the factor pass; backwards: the last three
+        L = config.n_layer
+        expected = {"fwd": 4 * L, "bwd_dkv": 3 * L, "bwd_dq": 3 * L}
+        assert launched == (expected if impl == "flash" else dict.fromkeys(before, 0))
+    for gi, ggT in ops["flash"]._ggT.items():
+        assert rel_err(ggT, ops["einsum"]._ggT[gi]) < 1e-4
+    for gi, aaT in ops["flash"]._aaT.items():
+        assert rel_err(aaT, ops["einsum"]._aaT[gi]) < 1e-4

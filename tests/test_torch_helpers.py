@@ -3,7 +3,7 @@
 The port's tests feed the same inputs, made with numpy from a seed, through a
 JAX function and its counterpart in ``curvlinops_tpu_torch``, and compare on
 the CPU in float32. Weights and parameter-space vectors cross over by name
-with ``curvlinops_tpu_torch.models.resnet.from_jax_params``.
+with ``curvlinops_tpu_torch.models.common.from_jax_params``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from curvlinops_tpu.models import resnet as jresnet
+from curvlinops_tpu_torch.models import common as tcommon
 from curvlinops_tpu_torch.models import resnet as tresnet
 
 NARROW_WIDTHS = (16, 16, 32, 32)
@@ -41,7 +42,7 @@ def rel_fro(actual, expected) -> float:
 def jax_name(path) -> str:
     """Torch parameter name of a JAX ``kfac_restricted`` leaf path."""
     key = path[0].key if hasattr(path[0], "key") else path[0]
-    parts = tresnet._KEYSTR.findall(key)
+    parts = tcommon._KEYSTR.findall(key)
     return ".".join(parts[:-1] + [{"W": "weight", "b": "bias"}.get(parts[-1], parts[-1])])
 
 

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from curvlinops_tpu.models import resnet as jresnet
+from curvlinops_tpu_torch.models import gpt as tgpt
 from curvlinops_tpu_torch.models import resnet as tresnet
 from tests.test_torch_helpers import assert_close, narrow_resnet
 
@@ -69,7 +70,7 @@ def test_same_pads_match_jax(size, kernel, stride):
 def test_cifar10_resnet18_problem():
     """The full-width problem builds with the JAX package's KFAC selection:
     20 conv weights plus the classifier's weight and bias."""
-    problem = tresnet.cifar10_resnet18(batch_size=2)
+    problem = tresnet.cifar10_resnet18(batch_size=2, device="cpu")
     names = list(problem.kfac_params)
     assert len(names) == 22 and names[-2:] == ["fc.weight", "fc.bias"]
     assert not any(".bn" in n or n.startswith("bn") for n in names)
@@ -78,3 +79,14 @@ def test_cifar10_resnet18_problem():
     with torch.no_grad():
         logits = problem.model(X)
     assert logits.shape == (2, 10) and torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("make_problem", ["cifar10_resnet18", "imagenet_resnet50", "shakespeare_nanogpt"])
+def test_problems_default_to_the_card(make_problem):
+    """The problems build on a CUDA device unless the caller asks for the
+    CPU, and refuse when there is none: no fallback to the CPU."""
+    build = getattr(tgpt if make_problem == "shakespeare_nanogpt" else tresnet, make_problem)
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(batch_size=2)
