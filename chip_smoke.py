@@ -23,7 +23,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``bwd_dkv``, ``bwd_dq``) against their plain versions on block 0's real
    ``q, k, v`` and a seeded ``dO``, in float32 and bfloat16, and times
    each kernel, its plain version and ``F.scaled_dot_product_attention``
-   (timed only; the port never calls it);
+   (timed only; the port never calls it), and the backward pair
+   (``bwd_dkv`` + ``bwd_dq``) against SDPA's one backward call;
 6. drives that main path, KFAC on the flash GPT: MC factor build with the
    determinism probe, the gradient, the heuristic damped inverse applied to
    it, and the KFAC matvec; it checks that each flash kernel ran at least
@@ -32,6 +33,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 7. runs each main path's factor pass, inverse and matvec once more under
    ``torch.profiler`` and prints device time by kernel and the busy share;
 8. prints a JSON line of kernel results and, last, a JSON status line.
+
+Each kernel's bound is the larger of its bytes (each input read once, each
+output written once) at 3.35 TB/s and its float32 products at the card's
+fastest float32-accurate rate, 3xTF32 (495 / 3 TFLOP/s).
 
 TF32 is off throughout: ``torch.backends.cudnn.allow_tf32`` defaults to
 True and would put the plain path's convolutions at three decimal digits.
@@ -57,9 +62,16 @@ F32_TOL = 1e-4  # relative Frobenius error, float32: summation order differs
 BF16_TOL = 1e-2  # both versions round the float32 result to bfloat16 (2^-8)
 FACTOR_TOL = 1e-4  # KFAC factors, kernel path vs plain path
 ORACLE_RTOL, ORACLE_ATOL = 1e-3, 1e-5  # as in the port's CPU oracle tests
-# published H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor
-# cores, and HBM3 bandwidth
-PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# published H100 SXM peaks (NVIDIA's data sheet), dense: TF32 tensor cores
+# (495 TFLOP/s) and HBM3 bandwidth. Every bound states float32 products at the
+# card's fastest float32-accurate route, 3xTF32 (three TF32 products per
+# float32 product), whatever route the kernel takes; bfloat16 products would
+# be at 989 TFLOP/s.
+PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 495e12 / 3, 3.35e12
+PEAK_NAME = "3xTF32, 495/3 = 165 TFLOP/s; 3.35 TB/s"
+# the port's own kernels, listed in every profile wherever they rank
+PORT_KERNELS = ("cov_tiles_kernel", "reduce_mirror_kernel", "flash_fwd_kernel",
+                "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 
 
 def rel_err(a, b) -> float:
@@ -91,7 +103,7 @@ def alternated_ms(plain, kernel, torch) -> tuple[float, float]:
 def device_profile(torch, label: str, fn) -> None:
     """One warm run of ``fn`` under ``torch.profiler``: wall and device ms,
     busy share (device over wall; the profiler inflates wall time, not
-    device time) and the largest device items by name."""
+    device time), the largest device items by name and the port's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -112,13 +124,16 @@ def device_profile(torch, label: str, fn) -> None:
         f"profile, {label}: wall {wall_ms:.3f} ms, device {device_ms:.3f} ms, "
         f"busy {device_ms / wall_ms:.3f}"
     )
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"    {ms:.3f} ms x{n} {name[:110]}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for rank, (name, (ms, n)) in enumerate(ranked):
+        if rank < 8 or any(k in name for k in PORT_KERNELS):
+            print(f"    {ms:.3f} ms x{n} {name[:110]}")
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least time in ms at the published peaks, and what bounds it."""
-    ops_ms, bytes_ms = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    """Least time in ms of float32 work at the published peaks (float32
+    products at the 3xTF32 rate), and what bounds it."""
+    ops_ms, bytes_ms = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
@@ -194,7 +209,8 @@ def resnet_phases(torch, dev, kernels) -> dict:
 
     max_abs, max_rel = 0.0, 0.0
     timed: dict = {}
-    print("conv, input [B, C, H, W], kernel, stride, d, kernel ms, plain ms, bound ms, rel err")
+    print(f"conv, input [B, C, H, W], kernel, stride, d, kernel ms, plain ms, bound ms "
+          f"({PEAK_NAME}), rel err")
     for u, x in eligible:
         cov, S = kernels.conv_input_covariance(x, u.meta)
         plain, plain_S = kernels.conv_input_covariance_plain(x, u.meta)
@@ -533,10 +549,15 @@ def gpt_phases(torch, dev, fa) -> list[dict]:
     )
     library = {"fwd": lib_fwd, "bwd_dkv": lib_bwd, "bwd_dq": lib_bwd}
     bounds = {n: flash_bound(n, B, H, T, hd, q.element_size()) for n in FLASH_KERNELS}
-    print("kernel, kernel ms, plain ms, SDPA ms, bound ms, bound by (float32)")
+    print(f"kernel, kernel ms, plain ms, SDPA ms, bound ms ({PEAK_NAME}), bound by (float32)")
     for n in FLASH_KERNELS:
         print(f"  {n}, {timing[n][0]:.4f}, {timing[n][1]:.4f}, {library[n]:.4f}, "
               f"{bounds[n][0]:.4f}, {bounds[n][1]}")
+    # SDPA's backward computes dq, dk and dv in one call: the pair is what competes with it
+    pair_ms = timing["bwd_dkv"][0] + timing["bwd_dq"][0]
+    pair_bound = bounds["bwd_dkv"][0] + bounds["bwd_dq"][0]
+    print(f"  backward pair bwd_dkv + bwd_dq {pair_ms:.4f} ms, SDPA backward {lib_bwd:.4f} ms, "
+          f"pair / SDPA {pair_ms / lib_bwd:.3f}, bound {pair_bound:.4f} ms")
     del qkv, q, k, v, do, o_ref, lse_ref, di, args, ql, kl, vl, o_lib
 
     # ---- the main path: KFAC on the flash GPT ------------------------- #

@@ -7,6 +7,12 @@ three Pallas kernels (forward, ``bwd_dkv``, ``bwd_dq``) are CUDA C++ for
 ``sm_90a`` here (``csrc/flash_attention.cu``; its header says what bounds
 them and how they are laid out), compiled with ``nvcc`` at first use and
 called through ``ctypes`` (:mod:`curvlinops_tpu_torch.utils.cuda_build`).
+The forward runs on the float32 CUDA cores. The two backward kernels run
+their products on the tensor cores (``mma.sync`` TF32, each float32 operand
+split into two TF32 parts, "3xTF32", and short tensor-core sums added in
+float32, for float32 accuracy), stream their tiles through a two-stage
+``cp.async`` ring, and keep ``P`` and ``dS`` in registers between the two
+products of each tile.
 
 :func:`flash_attention` is a ``torch.autograd.Function`` on the JAX layout
 ``[B, H, T, hd]``. Its forward returns ``o`` and keeps the per-row
@@ -165,6 +171,8 @@ def _check_cuda(q: torch.Tensor, *others: torch.Tensor) -> tuple[int, int, int, 
             raise ValueError(f"Shape {tuple(t.shape)} differs from q's {tuple(q.shape)}.")
         if not t.is_contiguous():
             raise ValueError("The kernels take contiguous [B, H, T, hd] tensors.")
+        if t.data_ptr() % 16:
+            raise ValueError("The kernels load 16-byte chunks: tensors must be 16-byte aligned.")
     B, H, T, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"Head dim {hd} is not one of {HEAD_DIMS}.")

@@ -125,8 +125,10 @@ def _qkv_do(shape, device, dtype, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 3, 200, 64), (1, 2, 1024, 64), (2, 2, 77, 16)],
-                         ids=["T200", "T1024", "T77hd16"])
+@pytest.mark.parametrize(
+    "shape", [(2, 3, 200, 64), (1, 2, 1024, 64), (2, 2, 77, 16), (1, 3, 300, 32), (2, 2, 160, 128)],
+    ids=["T200", "T1024", "T77hd16", "T300hd32", "T160hd128"],
+)
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_flash_kernels_match_plain(cuda, shape, dtype, causal):
     """Each of the three kernels against its plain version, at ragged and
@@ -147,6 +149,44 @@ def test_flash_kernels_match_plain(cuda, shape, dtype, causal):
     for name, a, b in (("o", o, o_ref), ("lse", lse, lse_ref), ("dq", dq, refs[0]),
                        ("dk", dk, refs[1]), ("dv", dv, refs[2])):
         assert rel_err(a, b) < tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_backward_kernels_are_deterministic(cuda, dtype):
+    """Two calls of each backward kernel on the same inputs give bitwise
+    identical ``dq``, ``dk`` and ``dv``: no atomics, a fixed summation order."""
+    q, k, v, do = _qkv_do((2, 3, 333, 64), cuda, dtype, seed=3)
+    o, lse = tfa.flash_attention_plain(q, k, v, causal=True, sm_scale=0.125)
+    di = (o.float() * do.float()).sum(-1)
+    args, kw = (q, k, v, do, lse, di), dict(causal=True, sm_scale=0.125)
+    def grads():
+        dk, dv = tfa.flash_attention_bwd_dkv_kernel(*args, **kw)
+        return dk, dv, tfa.flash_attention_bwd_dq_kernel(*args, **kw)
+
+    for name, a, b in zip(("dk", "dv", "dq"), grads(), grads()):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_backward_kernels_large_logits(cuda, causal):
+    """float32 with large scores: q scaled by 4 and k by 2 puts the scaled
+    scores at standard deviation 8 (extremes past +-30), where the low TF32
+    part of each split operand is small beside the high part; ``dq``, ``dk``
+    and ``dv`` still agree with the plain version within 1e-4."""
+    q, k, v, do = _qkv_do((2, 3, 256, 64), cuda, torch.float32, seed=4)
+    q, k = 4 * q, 2 * k
+    kw = dict(causal=causal, sm_scale=0.125)
+    o, lse = tfa.flash_attention_plain(q, k, v, **kw)
+    assert float((q @ k.transpose(-1, -2)).abs().max()) * 0.125 > 30
+    di = (o * do).sum(-1)
+    args = (q, k, v, do, lse, di)
+    dk, dv = tfa.flash_attention_bwd_dkv_kernel(*args, **kw)
+    dq = tfa.flash_attention_bwd_dq_kernel(*args, **kw)
+    refs = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, a, b in (("dq", dq, refs[0]), ("dk", dk, refs[1]), ("dv", dv, refs[2])):
+        assert rel_err(a, b) < 1e-4, name
 
 
 @pytest.mark.cuda
@@ -180,6 +220,9 @@ def test_flash_kernels_refuse_what_they_cannot_take(cuda):
         tfa.flash_attention(y, y, y, sm_scale=0.125)
     with pytest.raises(ValueError):
         y = torch.zeros((16, 64), device=cuda)
+        tfa.flash_attention(y, y, y, sm_scale=0.125)
+    with pytest.raises(ValueError, match="16-byte"):  # contiguous, but 4 bytes past an alignment
+        y = torch.zeros(16 * 64 + 1, device=cuda)[1:].view(1, 1, 16, 64)
         tfa.flash_attention(y, y, y, sm_scale=0.125)
 
 

@@ -131,6 +131,66 @@ def test_vmap_rule_folds_into_batch():
     assert_close(o_batched[1], o, 1e-6, 1e-6, "vmapped forward")
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, on the bits viewed as int32, as the kernels round ``hi``."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncated(x: torch.Tensor) -> torch.Tensor:
+    """float32 as the tensor core reads a TF32 operand: the low 13 bits dropped."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _einsum_tf32(eq, a, b):
+    """One TF32 product per float32 product (float32 sums)."""
+    return torch.einsum(eq, _tf32(a), _tf32(b))
+
+
+def _einsum_3xtf32(eq, a, b):
+    """The backward kernels' 3xTF32 product: ``a_hi = tf32(a)``, ``a_lo = a - a_hi``
+    as the tensor core reads it, ``a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi``."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32_truncated(a - a_hi), _tf32_truncated(b - b_hi)
+    return sum(torch.einsum(eq, x, y) for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)))
+
+
+def _bwd_with(einsum, q, k, v, do, lse, di, sm_scale):
+    """The plain ``dkv``/``dq`` formulas (causal) with every product through ``einsum``."""
+    s = einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
+    s = s.masked_fill(~torch.ones(s.shape[-2:], dtype=torch.bool).tril(), float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    ds = p * (einsum("bhqd,bhkd->bhqk", do, v) - di[..., None])
+    dq = einsum("bhqk,bhkd->bhqd", ds, k) * sm_scale
+    dk = einsum("bhqk,bhqd->bhkd", ds, q) * sm_scale
+    dv = einsum("bhqk,bhqd->bhkd", p, do)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("logits", ["unit", "large"])
+def test_3xtf32_split_meets_the_float32_gate(logits):
+    """Why the backward kernels split float32 operands for the TF32 tensor
+    cores: with the 3xTF32 split on every product (``q``, ``k``, ``v``,
+    ``dO``, ``P`` and ``dS``), ``dq``, ``dk`` and ``dv`` agree with the float32
+    plain version within 1e-5 relative Frobenius error, ten times inside the
+    card's 1e-4 gate; one TF32 pass does not. "large" scales q by 4 and k by 2
+    (scores of standard deviation 8), as the card test of large logits does."""
+    rng = np.random.default_rng(3)
+    q, k, v, do = (
+        torch.from_numpy(rng.standard_normal((1, 2, 256, 64)).astype(np.float32)) for _ in range(4)
+    )
+    if logits == "large":
+        q, k = 4 * q, 2 * k
+    o, lse = tfa.flash_attention_plain(q, k, v, causal=True, sm_scale=0.125)
+    di = (o * do).sum(-1)
+    refs = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True, sm_scale=0.125)
+    split = _bwd_with(_einsum_3xtf32, q, k, v, do, lse, di, 0.125)
+    one_pass = _bwd_with(_einsum_tf32, q, k, v, do, lse, di, 0.125)
+    for name, a, b, c in zip(("dq", "dk", "dv"), split, one_pass, refs):
+        assert float((a - c).norm() / c.norm()) < 1e-5, name
+        assert float((b - c).norm() / c.norm()) > 1e-5, name
+
+
 def test_cpu_tensors_take_the_plain_path():
     """On CPU tensors nothing is launched: the counters stay put."""
     before = dict(tfa.launches)
