@@ -6,11 +6,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 1. requires a CUDA device and prints the card's name and power limit;
 2. builds every kernel source (``curvlinops_tpu_torch/kfac/csrc``,
    ``curvlinops_tpu_torch/models/csrc``) with ``nvcc``, all at once, and
-   prints the build times and ``ptxas`` register and spill lines;
+   prints the build times and, for each kernel at the main paths' types
+   (float32; head dim 64), its ``ptxas`` registers and spills and its SASS
+   instruction count and TF32 tensor-core (``HMMA``) instructions from
+   ``cuobjdump -sass``;
 3. ResNet-18/CIFAR-10 at batch 512: holds the conv input-covariance kernel
    against its plain PyTorch version on every kernel-eligible conv input,
    captured from a real forward pass (float32; plus one bias-pad and one
-   bfloat16 case), and times both with CUDA events;
+   bfloat16 case), times both with CUDA events, prints each geometry's CTAs
+   (tiles x row splits) and share of its bound, and times
+   ``torch.matmul(P^T, P)`` on the materialised patch matrix ``P`` as the
+   library yardstick (timed only; the port never calls it);
 4. drives that main path, KFAC on ResNet-18 at batch 512: factor build with
    the MC Fisher through the kernel, heuristic and exact damped inverses
    applied to the gradient, and the Kronecker matvec; it checks that the
@@ -23,7 +29,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``bwd_dkv``, ``bwd_dq``) against their plain versions on block 0's real
    ``q, k, v`` and a seeded ``dO``, in float32 and bfloat16, and times
    each kernel, its plain version and ``F.scaled_dot_product_attention``
-   (timed only; the port never calls it), and the backward pair
+   (timed only; the port never calls it), each kernel's share of its bound,
+   the forward against SDPA's forward, and the backward pair
    (``bwd_dkv`` + ``bwd_dq``) against SDPA's one backward call;
 6. drives that main path, KFAC on the flash GPT: MC factor build with the
    determinism probe, the gradient, the heuristic damped inverse applied to
@@ -46,6 +53,8 @@ Any failed check raises, and the script exits nonzero without a status line.
 from __future__ import annotations
 
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -130,6 +139,47 @@ def device_profile(torch, label: str, fn) -> None:
             print(f"    {ms:.3f} ms x{n} {name[:110]}")
 
 
+def _main_kernel(mangled: str) -> str | None:
+    """The port kernel a mangled name instantiates, if it is the float32 (head
+    dim 64) instantiation the main paths run."""
+    name = next((k for k in PORT_KERNELS if k in mangled), None)
+    return name if "IfEE" in mangled or "IfLi64EE" in mangled else None
+
+
+def ptxas_usage(build_log: str) -> dict:
+    """``{kernel: "N registers, spills"}`` of the main paths' instantiations,
+    from ``nvcc -Xptxas -v`` (a function's properties follow its name)."""
+    usage, name = {}, None
+    for line in build_log.splitlines():
+        if "Function properties for " in line:
+            name = _main_kernel(line.split("Function properties for ")[1])
+        elif name and "spill" in line:
+            usage[name] = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            usage[name] = f"{regs} registers, {usage.get(name, '')}"
+            name = None
+    return usage
+
+
+def sass_counts(lib_path: Path) -> dict:
+    """``{kernel: (instructions, HMMA instructions)}`` of the float32 (head
+    dim 64) instantiations in a built library, from ``cuobjdump -sass``."""
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = _main_kernel(line.split("Function : ")[1].strip())
+            if name:
+                counts[name] = (0, 0)
+        elif name and re.search(r"/\*[0-9a-f]{4}\*/", line):
+            n, hmma = counts[name]
+            counts[name] = (n + 1, hmma + ("HMMA" in line))
+    return counts
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     """Least time in ms of float32 work at the published peaks (float32
     products at the 3xTF32 rate), and what bounds it."""
@@ -165,9 +215,10 @@ def main() -> None:
         builds = list(pool.map(cuda_build.build, sources))
     for lib_path, build_s, build_log in builds:
         print(f"build: {build_s:.2f} s -> {lib_path.relative_to(REPO)}")
-        for line in build_log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"  ptxas: {line.strip()}")
+        for kernel, usage in ptxas_usage(build_log).items():
+            print(f"  ptxas: {kernel} (float32): {usage}")
+        for kernel, (n, hmma) in sass_counts(lib_path).items():
+            print(f"  sass: {kernel} (float32): {n} instructions, {hmma} HMMA (TF32 tensor core)")
 
     entries = [resnet_phases(torch, dev, kernels)]
     entries += gpt_phases(torch, dev, fa)
@@ -186,6 +237,7 @@ def resnet_phases(torch, dev, kernels) -> dict:
     """Kernel against plain on the real conv inputs, then the KFAC main
     path; returns the kernel's JSON entry."""
     from curvlinops_tpu_torch.kfac.collector import TracedModel
+    from curvlinops_tpu_torch.kfac.math import extract_conv_patches
     from curvlinops_tpu_torch.kfac.operator import KFACLinearOperator
     from curvlinops_tpu_torch.models.resnet import cifar10_resnet18
 
@@ -209,8 +261,8 @@ def resnet_phases(torch, dev, kernels) -> dict:
 
     max_abs, max_rel = 0.0, 0.0
     timed: dict = {}
-    print(f"conv, input [B, C, H, W], kernel, stride, d, kernel ms, plain ms, bound ms "
-          f"({PEAK_NAME}), rel err")
+    print(f"conv, input [B, C, H, W], kernel, stride, d, CTAs (tiles x splits), kernel ms, "
+          f"plain ms, matmul(P^T P) ms, bound ms ({PEAK_NAME}), share of bound, rel err")
     for u, x in eligible:
         cov, S = kernels.conv_input_covariance(x, u.meta)
         plain, plain_S = kernels.conv_input_covariance_plain(x, u.meta)
@@ -221,30 +273,43 @@ def resnet_phases(torch, dev, kernels) -> dict:
         max_abs = max(max_abs, float((cov - plain).abs().max()))
         max_rel = max(max_rel, err)
         geo = (tuple(x.shape), u.meta["kernel"], u.meta["stride"])
+        d, R = cov.shape[0], x.shape[0] * S
         if geo not in timed:
             k_ms, p_ms = alternated_ms(
                 lambda: kernels.conv_input_covariance_plain(x, u.meta),
                 lambda: kernels.conv_input_covariance(x, u.meta), torch,
             )
+            # the library yardstick: one matmul on the materialised patch
+            # matrix (its extraction not timed)
+            P = extract_conv_patches(x, u.meta).reshape(R, d)
+            lib_ms = time_ms(lambda: torch.matmul(P.T, P), torch)
+            del P
             # the symmetric [d, d] output needs d (d + 1) / 2 dot products
             # over the B*S patch rows; x is read once, the output written once
-            d = cov.shape[0]
-            flops = x.shape[0] * S * d * (d + 1)
+            flops = R * d * (d + 1)
             nbytes = (x.numel() + d * d) * x.element_size()
-            timed[geo] = (k_ms, p_ms, *bound(flops, nbytes))
-        k_ms, p_ms, b_ms, _ = timed[geo]
+            timed[geo] = (k_ms, p_ms, *bound(flops, nbytes), lib_ms)
+        k_ms, p_ms, b_ms, _, lib_ms = timed[geo]
+        tiles = -(-d // kernels._TILE)
+        n_tiles = tiles * (tiles + 1) // 2
+        splits, _ = kernels._splits(
+            n_tiles, R, torch.cuda.get_device_properties(x.device).multi_processor_count
+        )
         print(
-            f"{u.name}, {list(x.shape)}, {u.meta['kernel']}, {u.meta['stride']}, "
-            f"{cov.shape[0]}, {k_ms:.4f}, {p_ms:.4f}, {b_ms:.4f}, {err:.2e}"
+            f"{u.name}, {list(x.shape)}, {u.meta['kernel']}, {u.meta['stride']}, {d}, "
+            f"{n_tiles * splits} ({n_tiles} x {splits}), {k_ms:.4f}, {p_ms:.4f}, {lib_ms:.4f}, "
+            f"{b_ms:.4f}, {b_ms / k_ms:.3f}, {err:.2e}"
         )
     per_conv = [timed[(tuple(x.shape), u.meta["kernel"], u.meta["stride"])] for u, x in eligible]
     kernel_ms, plain_ms, bound_ms = (sum(t[i] for t in per_conv) for i in range(3))
+    library_ms = sum(t[4] for t in per_conv)
     # what bounds the sum: operations unless the bytes-bound convs dominate it
     by_ops = sum(t[2] for t in per_conv if t[3] == "operations")
     bound_by = "operations" if by_ops >= bound_ms / 2 else "bytes"
     print(
         f"all 19 eligible convs: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.3f} ms"
+        f"matmul(P^T P) {library_ms:.3f} ms, bound {bound_ms:.3f} ms, "
+        f"share of bound {bound_ms / kernel_ms:.3f}"
     )
 
     u0, x0 = eligible[0]
@@ -335,7 +400,9 @@ def resnet_phases(torch, dev, kernels) -> dict:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "library_ms": None,  # no single PyTorch call computes a patch covariance
+        # no PyTorch call computes a patch covariance from x: the yardstick is
+        # matmul(P^T, P) on the materialised patch matrix, extraction not timed
+        "library_ms": library_ms,
     }
 
 
@@ -549,10 +616,13 @@ def gpt_phases(torch, dev, fa) -> list[dict]:
     )
     library = {"fwd": lib_fwd, "bwd_dkv": lib_bwd, "bwd_dq": lib_bwd}
     bounds = {n: flash_bound(n, B, H, T, hd, q.element_size()) for n in FLASH_KERNELS}
-    print(f"kernel, kernel ms, plain ms, SDPA ms, bound ms ({PEAK_NAME}), bound by (float32)")
+    print(f"kernel, kernel ms, plain ms, SDPA ms, bound ms ({PEAK_NAME}), bound by (float32), "
+          f"share of bound")
     for n in FLASH_KERNELS:
         print(f"  {n}, {timing[n][0]:.4f}, {timing[n][1]:.4f}, {library[n]:.4f}, "
-              f"{bounds[n][0]:.4f}, {bounds[n][1]}")
+              f"{bounds[n][0]:.4f}, {bounds[n][1]}, {bounds[n][0] / timing[n][0]:.3f}")
+    print(f"  forward {timing['fwd'][0]:.4f} ms, SDPA forward {lib_fwd:.4f} ms, "
+          f"forward / SDPA {timing['fwd'][0] / lib_fwd:.3f}")
     # SDPA's backward computes dq, dk and dv in one call: the pair is what competes with it
     pair_ms = timing["bwd_dkv"][0] + timing["bwd_dq"][0]
     pair_bound = bounds["bwd_dkv"][0] + bounds["bwd_dq"][0]

@@ -5,8 +5,10 @@ im2col plus the unnormalized input covariance ``sum_{b,s} a a^T`` of a 2-D
 convolution, which never materializes the ``[B, Ho*Wo, KH*KW*C]`` patch
 tensor. The kernel is CUDA C++ for ``sm_90a``
 (``csrc/conv_input_covariance.cu``; its header says what bounds it and how it
-is laid out), compiled with ``nvcc`` into a shared library at first use and
-called through ``ctypes`` (:mod:`curvlinops_tpu_torch.utils.cuda_build`).
+is laid out), running its products on the TF32 tensor cores with the 3xTF32
+split for float32 accuracy, compiled with ``nvcc`` into a shared library at
+first use and called through ``ctypes``
+(:mod:`curvlinops_tpu_torch.utils.cuda_build`).
 
 :func:`conv_input_covariance` launches the kernel for a CUDA tensor and
 raises on anything it does not take; for a CPU tensor it computes
@@ -31,8 +33,10 @@ from curvlinops_tpu_torch.utils import cuda_build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "conv_input_covariance.cu"
 _TILE = 64  # output tile edge of the kernel
-_BK = 16  # rows per shared-memory slab of the kernel
-_MIN_ROWS_PER_SPLIT = 2048
+_BK = 32  # rows per slab of the kernel (one short tensor-core sum)
+_CTAS_PER_SM = 3  # resident CTAs of the kernel per SM (its shared memory allows three)
+_MIN_ROWS_PER_SPLIT = 512
+_MAX_SPLITS = 16
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -88,12 +92,14 @@ def conv_input_covariance_plain(
     return cov.to(x.dtype), S
 
 
-def _splits(n_tiles: int, R: int, device: torch.device) -> tuple[int, int]:
-    """Split the row reduction so that about two CTAs per SM are in flight."""
-    target = 2 * torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(-(-target // n_tiles), R // _MIN_ROWS_PER_SPLIT))
-    rows = -(-R // splits)
-    rows = -(-rows // _BK) * _BK
+def _splits(n_tiles: int, R: int, n_sms: int) -> tuple[int, int]:
+    """``(splits, rows per split)`` of the row reduction over ``blockIdx.z``:
+    as many splits as fit the tiles' CTAs into one wave of
+    ``_CTAS_PER_SM`` resident CTAs per SM (layers with many tiles take one),
+    at most ``_MAX_SPLITS`` and none under ``_MIN_ROWS_PER_SPLIT`` rows.
+    Every split but the last is a whole number of ``_BK``-row slabs."""
+    splits = max(1, min(n_sms * _CTAS_PER_SM // n_tiles, _MAX_SPLITS, R // _MIN_ROWS_PER_SPLIT))
+    rows = -(-(-(-R // splits)) // _BK) * _BK
     return -(-R // rows), rows
 
 
@@ -126,15 +132,20 @@ def conv_input_covariance(
         raise TypeError(f"Kernel takes float32 or bfloat16, got {x.dtype}.")
     if not conv_cov_kernel_supported(tuple(x.shape), meta):
         raise ValueError(f"Unsupported conv geometry for the kernel: {meta}.")
+    if x.numel() >= 2**31:
+        raise ValueError("The kernel indexes its input with 32-bit integers: too many elements.")
     geo = _geometry(tuple(x.shape), meta)
     S = geo["Ho"] * geo["Wo"]
     R = geo["B"] * S
     d = geo["d_in"] + (bias_pad is not None)
     tiles = -(-d // _TILE)
-    splits, rows_per_split = _splits(tiles * (tiles + 1) // 2, R, x.device)
+    n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits, rows_per_split = _splits(tiles * (tiles + 1) // 2, R, n_sms)
 
     lib = cuda_build.load(SOURCE, _bind)
     x_nhwc = x.permute(0, 2, 3, 1).contiguous()
+    if x_nhwc.data_ptr() % 16:  # the kernel gathers 16-byte chunks
+        x_nhwc = x_nhwc.clone()
     ws = torch.empty((splits, d, d), dtype=torch.float32, device=x.device)
     out = torch.empty((d, d), dtype=x.dtype, device=x.device)
     err = lib.conv_input_covariance(

@@ -21,230 +21,84 @@
 // about 128 flops per byte. The backward does 2.5x the forward's products
 // (3.5x as the two kernels below split them). So every [T, T] score tile
 // stays out of device memory and each loaded tile is reused across a whole
-// 64-row block. Common to all three kernels:
+// 64-row block. All three kernels run their products on the tensor cores:
 //
+//   - mma.sync m16n8k8 TF32 with float32 accumulators and the 3xTF32 split
+//     of ../../csrc/tf32_mma.cuh: TF32 keeps 10 mantissa bits, too few for
+//     the 1e-4 float32 gate, so each float32 operand is split a = hi + lo
+//     and a b is summed as a_lo b_hi + a_hi b_lo + a_hi b_hi. bfloat16
+//     inputs are exact in TF32, so their lo products are skipped; P and dS
+//     are split on both routes. wgmma (warpgroup, 64-row) products are later
+//     work: mma.sync keeps the fragment code per warp;
+//   - the tensor core's float32 sums truncate; over the T / 8 steps of a
+//     long sum that drifts by 1e-5 relative. So every sum the tensor core
+//     takes is short: the first products per 8-column k-step (dP, S in the
+//     backward) or per 4 of them (S in the forward), the second (P v, P^T dO,
+//     dS^T q, dS k) per streamed tile, each then added to a float32
+//     accumulator with a rounded add. The float32 results then agree with the
+//     plain version to about 1e-6 (chip_smoke.py);
 //   - grid (B*H, 64-row tiles): blockIdx.x is the (b, h) slice, blockIdx.y
 //     the tile. Causal tiles above the diagonal are skipped, and the
 //     longest rows of work are launched first (blockIdx.y 0 gets the last
 //     query tile in the forward and dq kernels, the first key tile in dkv)
-//     to shorten the tail;
-//   - no atomics: dkv owns a key tile and loops over query tiles, dq owns
-//     a query tile and loops over key tiles, so every output element is
-//     summed by one thread in a fixed order (the results are deterministic).
-//
-// Forward, on the fp32 CUDA cores (H100: 67 TFLOP/s): one CTA of 256
-// threads per tile; each thread computes 4x4 of the 64x64 score tile from
-// shared-memory tiles of row stride HD + 1 floats (rows ty + 16*i, columns
-// tx + 16*j, ty = tid / 16, tx = tid % 16); row reductions stay inside a
-// half-warp; P goes through shared memory once for P V. Its loads are not
-// pipelined.
-//
-// Backward (dkv, dq), on the tensor cores. At 3.5 T^2 HD flops per head a
-// float32-accurate product is what bounds them, so:
-//
-//   - mma.sync m16n8k8 TF32 with float32 accumulators. TF32 keeps 10
-//     mantissa bits, too few for the 1e-4 float32 gate, so each float32
-//     operand is split a = hi + lo (hi rounded to TF32 in two integer
-//     instructions; the tensor core reads lo's top 10 mantissa bits) and
-//     a b is summed as a_lo b_hi + a_hi b_lo + a_hi b_hi ("3xTF32": 495 / 3
-//     = 165 TFLOP/s of float32-accurate work against the CUDA cores' 67).
-//     bfloat16 inputs are exact in TF32 (8 mantissa bits), so their lo
-//     products are skipped; P and dS are split on both routes. wgmma
-//     (warpgroup, 64-row) products are later work: mma.sync keeps the
-//     fragment code per warp;
-//   - the tensor core's float32 sums truncate; over the T / 8 steps of a
-//     long sum that drifts by 1e-5 relative. So every sum the tensor core
-//     takes is short: the first products (S, dP) per 8-column k-step, the
-//     second (P^T dO, dS^T q, dS k) per streamed tile, each then added to
-//     a float32 accumulator with a rounded add. The float32 results then
-//     agree with the plain version to about 1e-6 (chip_smoke.py);
+//     to shorten the tail. At B=4, H=12, T=1024 that is 768 CTAs over 132
+//     SMs;
 //   - 4 warps (128 threads) per CTA, each owning 16 rows of the CTA's
-//     64-row tile (keys in dkv, queries in dq) and the full width of the
-//     streamed tile (32 queries in dkv, 16 at HD = 128 to fit the dk and dv
-//     accumulators in registers; 32 keys in dq). The first products'
-//     accumulators are reused in registers as the A operand of the second
-//     products: an accumulator's columns 2t, 2t + 1 are taken as the
-//     contraction index t, t + 4 and the B operand's rows are read in the
-//     same permuted order, so P and dS never touch shared memory. The
-//     independent mma chains of a step are issued interleaved;
-//   - the streamed tiles (q, dO, lse, di in dkv; k, v in dq) go through a
-//     two-stage ring of 16-byte cp.async loads: the next tile lands while
-//     the current one is computed, one __syncthreads per tile. Shared
-//     tiles keep the input dtype with a row stride of HD plus one 16-byte
-//     chunk, 4 banks per row, so the fragment loads (row g, column t; or
-//     row 2t, column g, for lane 4 g + t) hit 32 different banks;
-//   - 64-row tiles owned: at B=4, H=12, T=1024 that is 768 CTAs over 132
-//     SMs. Streamed tiles of 32 rows keep a float32 CTA at HD = 64 to 70 KB
-//     of shared memory; dkv's registers (255) allow two CTAs per SM, dq's
-//     (128) three. The masks are evaluated only on tiles that cross the
-//     diagonal or the end of the sequence.
+//     64-row tile (queries in the forward and dq, keys in dkv) and the full
+//     width of the streamed tile. The first products' accumulators are
+//     reused in registers as the A operand of the second products: an
+//     accumulator's columns 2t, 2t + 1 are taken as the contraction index
+//     t, t + 4 and the B operand's rows are read in the same permuted order,
+//     so P and dS never touch shared memory. The independent mma chains of a
+//     step are issued interleaved;
+//   - the next streamed tile is loaded in 16-byte chunks while the current
+//     one is computed. Shared tiles have a row stride of HD plus one 16-byte
+//     chunk, 4 banks per row, so the fragment loads (row g, column t; or row
+//     2t, column g, for lane 4 g + t) hit 32 different banks. The masks are
+//     evaluated only on tiles that cross the diagonal or the end of the
+//     sequence;
+//   - no atomics: dkv owns a key tile and loops over query tiles, the
+//     forward and dq own a query tile and loop over key tiles, so every
+//     output element is summed by one thread in a fixed order (the results
+//     are deterministic).
+//
+// Forward: the longest rows first, a 64-query tile per CTA, key tiles of 32
+// rows (16 at HD = 128) from 0 to the diagonal. Each element is split once:
+// q into register fragments held for the whole key loop (at HD = 128 they
+// would not fit beside the o accumulator, so q's hi and lo words stay in
+// shared memory there), each streamed k and v tile by the whole CTA into hi
+// and lo word tiles in shared memory (not by each of the 4 warps that read
+// it, which left the backward kernels bound by issue), and P in registers.
+// The next k and v tile waits in registers while the current one is
+// multiplied and is then split into the other of two stages: one
+// __syncthreads per tile. The online softmax runs on the accumulator
+// fragments: a row lives in the 4 lanes of a quad, so its max and sum take
+// two shuffles. A float32 CTA at HD = 64 takes 68 KB of shared memory.
+// (Placing each element's hi and lo side by side, for one 8-byte load,
+// was slower: the tensor core takes a fragment's hi words in consecutive
+// registers, and the compiler moved them there one by one.)
+//
+// Backward (dkv, dq): the streamed tiles (q, dO, lse, di in dkv; k, v in dq)
+// are 32 rows (dkv: 16 at HD = 128 to fit the dk and dv accumulators in
+// registers), arrive through a two-stage ring of cp.async loads, and are
+// split per warp as the fragments are loaded, one __syncthreads per tile. A
+// float32 CTA at HD = 64 takes 70 KB of shared memory; dkv's registers (255)
+// allow two CTAs per SM, dq's (128) three.
 
-#include <cstdint>
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "../../csrc/tf32_mma.cuh"
 
 namespace {
 
-constexpr int BM = 64;    // query rows per tile
-constexpr int BN = 64;    // key rows per tile (BM == BN: a tile is on the diagonal or not)
-constexpr int NT = 256;   // threads per forward CTA
-constexpr int LDP = BN + 16;  // row stride of the probability tiles (no bank conflicts between half-warps)
+constexpr int BM = 64;   // rows of an owned tile (queries in fwd and dq, keys in dkv)
+constexpr int BN = 64;   // BM == BN: a tile is on the diagonal or not
+constexpr int NT = 128;  // threads per CTA: 4 warps of 16 rows each
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Rows [row0, row0 + 64) of one [T, HD] slice into shared memory as float,
-// row stride HD + 1, zero past T.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0, int seq) {
-  for (int idx = threadIdx.x; idx < BM * HD; idx += NT) {
-    const int r = idx / HD, d = idx % HD, g = row0 + r;
-    dst[r * (HD + 1) + d] = g < seq ? to_f(src[(size_t)g * HD + d]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// ------------------------------------------------------------------------
-// forward: o = softmax(sm_scale * q k^T, causal) v and the logsumexp
-// ------------------------------------------------------------------------
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, int seq, int causal, float scale_log2) {
-  constexpr int LD = HD + 1, NC = HD / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;            // [BM][LD]
-  float* Ks = Qs + BM * LD;    // [BN][LD]
-  float* Vs = Ks + BN * LD;    // [BN][LD]
-  float* Ps = Vs + BN * LD;    // [BM][LDP]
-
-  const int n_tiles = (seq + BM - 1) / BM;
-  const int qt = n_tiles - 1 - blockIdx.y;  // longest rows first
-  const int q0 = qt * BM;
-  const size_t base = (size_t)blockIdx.x * seq * HD;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-
-  load_tile<T, HD>(Qs, q + base, q0, seq);
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  const int n_kt = causal ? qt + 1 : n_tiles;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, HD>(Ks, k + base, k0, seq);
-    load_tile<T, HD>(Vs, v + base, k0, seq);
-    __syncthreads();
-
-    float s[4][4] = {};
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-
-    // online softmax in base 2; key 0 is visible to every row, so after the
-    // first tile every row maximum is finite
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool masked = col >= seq || (causal && col > row);
-        s[i][j] = masked ? -CUDART_INF_F : s[i][j] * scale_log2;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = exp2f(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = exp2f(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-      l[i] = l[i] * alpha + half_warp_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(ty + 16 * i) * LDP + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BN; ++c) {
-      float p[4], w[NC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * LDP + c];
-#pragma unroll
-      for (int cc = 0; cc < NC; ++cc) w[cc] = Vs[c * LD + tx + 16 * cc];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int cc = 0; cc < NC; ++cc) acc[i][cc] = fmaf(p[i], w[cc], acc[i][cc]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= seq) continue;
-    const float inv = 1.f / l[i];
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      o[base + (size_t)row * HD + tx + 16 * c] = from_f<T>(acc[i][c] * inv);
-    if (tx == 0) lse[(size_t)blockIdx.x * seq + row] = (m[i] + log2f(l[i])) * LN2;
-  }
-}
-
-// ------------------------------------------------------------------------
-// backward: tensor-core building blocks
-// ------------------------------------------------------------------------
-constexpr int BWD_NT = 128;  // threads per backward CTA: 4 warps of 16 rows each
-
-// Row stride (elements) of a shared-memory tile: HD plus one 16-byte chunk.
-// Rows stay 16-byte aligned for cp.async, and a row is 4 banks (mod 32) past
-// the one before, so the fragment loads below (lane (g, t) reads row g,
-// column t, or row 2t, column g) hit 32 different banks.
-template <typename T, int HD> __host__ __device__ constexpr int tile_ld() {
-  return HD + 16 / (int)sizeof(T);
-}
-
+// 16 bytes from global to shared memory, asynchronously; src_bytes 0 writes
+// zeros and reads nothing.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes)
@@ -265,85 +119,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Rows [row0, row0 + ROWS) of one [seq, HD] slice into a shared tile of row
-// stride tile_ld, in 16-byte cp.async chunks; rows past seq are zero-filled
-// (source size 0).
-template <typename T, int HD, int ROWS>
-__device__ __forceinline__ void load_tile_async(T* dst, const T* __restrict__ src, int row0,
-                                                int seq) {
-  constexpr int EPC = 16 / (int)sizeof(T), CPR = HD / EPC, LD = tile_ld<T, HD>();
-  constexpr int RS = BWD_NT / CPR;  // rows per pass of the CTA; a thread keeps its column
-  const int r = threadIdx.x / CPR, col = (threadIdx.x % CPR) * EPC;
-  const T* from = src + (size_t)(row0 + r) * HD + col;
-#pragma unroll
-  for (int i = 0; i < (ROWS + RS - 1) / RS; ++i) {
-    if (ROWS % RS == 0 || r + i * RS < ROWS) {
-      const bool in = row0 + r + i * RS < seq;
-      cp_async16(dst + (r + i * RS) * LD + col, in ? from + (size_t)i * RS * HD : src, in ? 16 : 0);
-    }
-  }
-}
-
-// 3xTF32: x = hi + lo with hi = tf32(x) (round to nearest) and lo = x - hi,
-// of which the tensor core reads the TF32 bits (it ignores the low 13), and
-// a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi keeps float32 accuracy on the TF32
-// tensor cores. An EXACT operand (a bfloat16 value: 8 mantissa bits, TF32
-// has 10) is its own hi and has lo = 0, so its lo product is skipped.
-struct FragA { uint32_t hi[4], lo[4]; };  // m16n8k8 A: 16 rows x 8 (k)
-struct FragB { uint32_t hi[2], lo[2]; };  // m16n8k8 B: 8 (k) x 8 columns
-
-// Round to TF32, to nearest with ties away from zero, in two integer
-// instructions: cvt.rna.tf32.f32 rounds the same way but sm_90 runs it as a
-// longer sequence that also handles NaN and infinity (the operands here are
-// finite).
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-template <bool EXACT>
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  if (EXACT) {
-    hi = __float_as_uint(x);
-    lo = 0u;
-  } else {
-    hi = to_tf32(x);
-    lo = __float_as_uint(x - __uint_as_float(hi));
-  }
-}
-
-// d += a b on the tensor cores, TF32 inputs, float32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d[i] += a[i] b[i] for i < N to float32 accuracy, the small products
-// first, summed in the tensor core. The N chains are independent and are
-// issued product by product across them, so that each mma's latency hides
-// behind the others' (a warp issues in order). The tensor core's float32
-// sums truncate instead of rounding, so a long chain of them drifts (1e-5
-// relative over T = 1024): the callers keep the chains short and add each
-// short sum into their accumulators with a rounded float32 add (add_to).
-template <bool A_EXACT, bool B_EXACT, int N>
-__device__ __forceinline__ void mma3(float (&d)[N][4], const FragA (&a)[N], const FragB (&b)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    if (!A_EXACT) mma_tf32(d[i], a[i].lo, b[i].hi);
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    if (!B_EXACT) mma_tf32(d[i], a[i].hi, b[i].lo);
-#pragma unroll
-  for (int i = 0; i < N; ++i) mma_tf32(d[i], a[i].hi, b[i].hi);
-}
-
-__device__ __forceinline__ void add_to(float (&d)[4], const float (&p)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += p[i];
-}
-
 // The first products of one k-step: d[j] += a b[j] for the N column blocks
 // j, each as one short sum (three products in the tensor core, then add_to).
 template <bool EXACT, int N>
@@ -360,6 +135,33 @@ __device__ __forceinline__ void mma3_add_row(float (&d)[N][4], const FragA& a,
   mma3<EXACT, EXACT, N>(p, as, b);
 #pragma unroll
   for (int j = 0; j < N; ++j) add_to(d[j], p[j]);
+}
+
+// Row stride (elements) of a shared-memory tile: HD plus one 16-byte chunk.
+// Rows stay 16-byte aligned for cp.async, and a row is 4 banks (mod 32) past
+// the one before, so the fragment loads below (lane (g, t) reads row g,
+// column t, or row 2t, column g) hit 32 different banks.
+template <typename T, int HD> __host__ __device__ constexpr int tile_ld() {
+  return HD + 16 / (int)sizeof(T);
+}
+
+// Rows [row0, row0 + ROWS) of one [seq, HD] slice into a shared tile of row
+// stride tile_ld, in 16-byte cp.async chunks; rows past seq are zero-filled
+// (source size 0).
+template <typename T, int HD, int ROWS>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* __restrict__ src, int row0,
+                                                int seq) {
+  constexpr int EPC = 16 / (int)sizeof(T), CPR = HD / EPC, LD = tile_ld<T, HD>();
+  constexpr int RS = NT / CPR;  // rows per pass of the CTA; a thread keeps its column
+  const int r = threadIdx.x / CPR, col = (threadIdx.x % CPR) * EPC;
+  const T* from = src + (size_t)(row0 + r) * HD + col;
+#pragma unroll
+  for (int i = 0; i < (ROWS + RS - 1) / RS; ++i) {
+    if (ROWS % RS == 0 || r + i * RS < ROWS) {
+      const bool in = row0 + r + i * RS < seq;
+      cp_async16(dst + (r + i * RS) * LD + col, in ? from + (size_t)i * RS * HD : src, in ? 16 : 0);
+    }
+  }
 }
 
 // Fragments from row-major shared tiles of row stride ld; lane = 4 g + t.
@@ -410,13 +212,278 @@ template <int HD> __host__ __device__ constexpr int dkv_q_rows() { return HD <= 
 constexpr int DQ_KT = 32;
 
 // ------------------------------------------------------------------------
+// pre-split tiles: the hi and the lo words of each element in two word
+// tiles of row stride HD + 4 (rows 16-byte aligned, 4 banks apart, so the
+// loads below hit 32 different banks)
+// ------------------------------------------------------------------------
+template <int HD> __host__ __device__ constexpr int word_ld() { return HD + 4; }
+
+// Rows [0, ROWS) of a row-major [*, HD] tile of T (row stride src_ld
+// elements, 16-byte chunks) split by the whole CTA into hi and lo word
+// tiles; rows from `valid` on are zero. lo is not written when EXACT.
+template <bool EXACT, typename T, int HD, int ROWS>
+__device__ __forceinline__ void split_tile(uint32_t* hi, uint32_t* lo, const T* src, int src_ld,
+                                           int valid) {
+  constexpr int EPC = 16 / (int)sizeof(T), CPR = HD / EPC, LW = word_ld<HD>();
+#pragma unroll
+  for (int i = 0; i < (ROWS * CPR + NT - 1) / NT; ++i) {
+    const int idx = threadIdx.x + i * NT;
+    if ((ROWS * CPR) % NT == 0 || idx < ROWS * CPR) {
+      const int r = idx / CPR, c = (idx % CPR) * EPC;
+      float x[EPC];
+      if (r < valid) {
+        chunk_to_floats<T, EPC>(x, *reinterpret_cast<const uint4*>(src + (size_t)r * src_ld + c));
+      } else {
+#pragma unroll
+        for (int e = 0; e < EPC; ++e) x[e] = 0.f;
+      }
+      split_store<EXACT, EPC>(hi + r * LW + c, lo + r * LW + c, x);
+    }
+  }
+}
+
+// The fragment loaders above, from pre-split word tiles (lo not read when
+// EXACT).
+template <bool EXACT>
+__device__ __forceinline__ void load_a_pre(FragA& f, const uint32_t* hi, const uint32_t* lo,
+                                           int ld, int r0, int c0, int g, int t) {
+  const int at = (r0 + g) * ld + c0 + t;
+  const int off[4] = {0, 8 * ld, 4, 8 * ld + 4};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f.hi[i] = hi[at + off[i]];
+    f.lo[i] = EXACT ? 0u : lo[at + off[i]];
+  }
+}
+
+template <bool EXACT>
+__device__ __forceinline__ void load_bt_pre(FragB& f, const uint32_t* hi, const uint32_t* lo,
+                                            int ld, int r0, int c0, int g, int t) {
+  const int at = (r0 + g) * ld + c0 + t;
+  f.hi[0] = hi[at];
+  f.hi[1] = hi[at + 4];
+  f.lo[0] = EXACT ? 0u : lo[at];
+  f.lo[1] = EXACT ? 0u : lo[at + 4];
+}
+
+template <bool EXACT>
+__device__ __forceinline__ void load_b_perm_pre(FragB& f, const uint32_t* hi, const uint32_t* lo,
+                                                int ld, int r0, int c0, int g, int t) {
+  const int at = (r0 + 2 * t) * ld + c0 + g;
+  f.hi[0] = hi[at];
+  f.hi[1] = hi[at + ld];
+  f.lo[0] = EXACT ? 0u : lo[at];
+  f.lo[1] = EXACT ? 0u : lo[at + ld];
+}
+
+// Keys per streamed tile of the forward; q stays in registers up to HD = 64.
+template <int HD> __host__ __device__ constexpr int fwd_k_rows() { return HD <= 64 ? 32 : 16; }
+template <int HD> __host__ __device__ constexpr bool fwd_q_in_regs() { return HD <= 64; }
+constexpr int FWD_SK = 4;  // k-steps (8 columns of HD each) per short tensor-core sum of S
+
+// ------------------------------------------------------------------------
+// forward: o = softmax(sm_scale * q k^T, causal) v and the logsumexp; one
+// CTA per 64-query tile, looping over the key tiles up to the diagonal;
+// warp w owns queries 16 w .. 16 w + 15.
+// ------------------------------------------------------------------------
+template <typename T, int HD>
+__global__ void __launch_bounds__(NT) flash_fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, float* __restrict__ lse, int seq, int causal, float scale_log2) {
+  constexpr bool EXACT = sizeof(T) == 2;  // bfloat16 inputs are exact in TF32
+  constexpr bool QREG = fwd_q_in_regs<HD>();
+  constexpr int LW = word_ld<HD>(), KT = fwd_k_rows<HD>(), NK = KT / 8, NC = HD / 8;
+  constexpr int SK = FWD_SK < NC ? FWD_SK : NC;
+  constexpr int EPC = 16 / (int)sizeof(T), CPR = HD / EPC, NR = (KT * CPR + NT - 1) / NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // word tiles: k and v hi and lo in two stages, then q's hi and lo (HD = 128)
+  constexpr int TW = KT * LW, NLO = EXACT ? 0 : 1;
+  uint32_t* Khi = reinterpret_cast<uint32_t*>(smem_raw);  // [2][KT][LW]
+  uint32_t* Vhi = Khi + 2 * TW;                           // [2][KT][LW]
+  uint32_t* Klo = Vhi + 2 * TW;                           // [2][KT][LW], float32 only
+  uint32_t* Vlo = Klo + NLO * 2 * TW;                     // [2][KT][LW], float32 only
+  uint32_t* Qhi = Vlo + NLO * 2 * TW;                     // [BM][LW]
+  uint32_t* Qlo = Qhi + BM * LW;                          // [BM][LW], float32 only
+
+  const int n_tiles = (seq + BM - 1) / BM;
+  const int qt = n_tiles - 1 - blockIdx.y;  // longest rows first
+  const int q0 = qt * BM;
+  const size_t base = (size_t)blockIdx.x * seq * HD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int qr = warp * 16;  // the warp's first query row in the tile
+  const int n_kt = ((causal ? min(seq, q0 + BM) : seq) + KT - 1) / KT;
+
+  // the next k and v tiles in registers (16-byte loads, zero past seq),
+  // split into a stage of the word tiles after the current tile's products
+  uint4 k_next[NR], v_next[NR];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const int idx = threadIdx.x + i * NT, row = k0 + idx / CPR, c = (idx % CPR) * EPC;
+      const bool in = ((KT * CPR) % NT == 0 || idx < KT * CPR) && row < seq;
+      const size_t at = base + (size_t)row * HD + c;
+      k_next[i] = in ? *reinterpret_cast<const uint4*>(k + at) : make_uint4(0u, 0u, 0u, 0u);
+      v_next[i] = in ? *reinterpret_cast<const uint4*>(v + at) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  auto store = [&](int st) {
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const int idx = threadIdx.x + i * NT, r = idx / CPR, c = (idx % CPR) * EPC;
+      if ((KT * CPR) % NT == 0 || idx < KT * CPR) {
+        const int at = st * TW + r * LW + c;
+        float x[EPC];
+        chunk_to_floats<T, EPC>(x, k_next[i]);
+        split_store<EXACT, EPC>(Khi + at, Klo + at, x);
+        chunk_to_floats<T, EPC>(x, v_next[i]);
+        split_store<EXACT, EPC>(Vhi + at, Vlo + at, x);
+      }
+    }
+  };
+
+  fetch(0);
+  store(0);
+  // q, split once: each lane's fragments (rows qr + g (+ 8), columns
+  // c0 + t (+ 4)) in registers, or the CTA's tile in shared memory
+  FragA qa[QREG ? NC : 1];
+  if constexpr (QREG) {
+#pragma unroll
+    for (int s = 0; s < NC; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + qr + g + 8 * (i & 1), col = 8 * s + t + 4 * (i >> 1);
+        const float x = row < seq ? to_f(q[base + (size_t)row * HD + col]) : 0.f;
+        split<EXACT>(x, qa[s].hi[i], qa[s].lo[i]);
+      }
+  } else {
+    split_tile<EXACT, T, HD, BM>(Qhi, Qlo, q + base + (size_t)q0 * HD, HD, seq - q0);
+  }
+  __syncthreads();
+
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};  // rows qr + g, qr + g + 8
+  float acc[NC][4] = {};
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1, k0 = kt * KT;
+    const bool more = kt + 1 < n_kt;
+    if (more) fetch(k0 + KT);  // in flight during the products below
+    const int at = st * TW;  // this stage's tiles
+
+    // S = q k^T: rows the warp's 16 queries, columns KT keys; a short
+    // tensor-core sum per SK k-steps, added in float32
+    float s[NK][4] = {};
+#pragma unroll
+    for (int c0 = 0; c0 < NC; c0 += SK) {
+      float p[NK][4] = {};
+#pragma unroll
+      for (int c = c0; c < c0 + SK; ++c) {
+        FragA a[NK];
+        if constexpr (QREG) a[0] = qa[c];
+        else load_a_pre<EXACT>(a[0], Qhi, Qlo, LW, qr, 8 * c, g, t);
+        FragB kb[NK];
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          a[j] = a[0];
+          load_bt_pre<EXACT>(kb[j], Khi + at, Klo + at, LW, 8 * j, 8 * c, g, t);
+        }
+        mma3<EXACT, EXACT, NK>(p, a, kb);
+      }
+#pragma unroll
+      for (int j = 0; j < NK; ++j) add_to(s[j], p[j]);
+    }
+
+    // online softmax in base 2 on the fragments: lane (g, t) holds rows
+    // g (e < 2) and g + 8 (e >= 2) at columns 8 j + 2 t + e % 2, so a row's
+    // max and sum are over the quad's 4 lanes
+    const bool edge = k0 + KT > seq || (causal && k0 + KT - 1 > q0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + qr + g + 8 * h;
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          const int col = k0 + 8 * j + 2 * t + e % 2;
+          const bool masked = edge && (col >= seq || (causal && col > row));
+          s[j][e] = masked ? -CUDART_INF_F : s[j][e] * scale_log2;
+          mx = fmaxf(mx, s[j][e]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      // a row with no visible key yet keeps p = 0 and l = 0 (no inf - inf)
+      const float m_sub = m_new == -CUDART_INF_F ? 0.f : m_new;
+      const float alpha = exp2f(m[h] - m_sub);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[j][e] = exp2f(s[j][e] - m_sub);
+          rs += s[j][e];
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l[h] = l[h] * alpha + rs;
+      m[h] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        acc[c][2 * h] *= alpha;
+        acc[c][2 * h + 1] *= alpha;
+      }
+    }
+
+    // o += P v: P stays in registers as A; the tile's sum is taken in the
+    // tensor core and added once
+    FragA pa[NK];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) acc_to_a(pa[j], s[j]);
+    constexpr int CW = NC % 4 == 0 ? 4 : 2;  // chains: o at columns c .. c + CW - 1
+#pragma unroll
+    for (int c = 0; c < NC; c += CW) {
+      float tt[CW][4] = {};
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        FragA a[CW];
+        FragB b[CW];
+#pragma unroll
+        for (int i = 0; i < CW; ++i) {
+          a[i] = pa[j];
+          load_b_perm_pre<EXACT>(b[i], Vhi + at, Vlo + at, LW, 8 * j, 8 * (c + i), g, t);
+        }
+        mma3<false, EXACT, CW>(tt, a, b);
+      }
+#pragma unroll
+      for (int i = 0; i < CW; ++i) add_to(acc[c + i], tt[i]);
+    }
+    // the next tile into the other stage, whose readers finished before the
+    // last barrier
+    if (more) store(st ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + qr + g + 8 * h;
+    if (row >= seq) continue;
+    const float inv = 1.f / l[h];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        o[base + (size_t)row * HD + 8 * c + 2 * t + e] = from_f<T>(acc[c][2 * h + e] * inv);
+    if (t == 0) lse[(size_t)blockIdx.x * seq + row] = (m[h] + log2f(l[h])) * LN2;
+  }
+}
+
+// ------------------------------------------------------------------------
 // backward, dk and dv: one CTA per 64-key tile, looping over the query
 // tiles from the diagonal on; warp w owns keys 16 w .. 16 w + 15.
 //   P^T = exp(sm_scale k q^T - lse), dv = P^T dO,
 //   dS^T = P^T * (v dO^T - di), dk = sm_scale dS^T q
 // ------------------------------------------------------------------------
 template <typename T, int HD>
-__global__ void __launch_bounds__(BWD_NT) flash_bwd_dkv_kernel(
+__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ di,
     T* __restrict__ dk, T* __restrict__ dv, int seq, int causal, float scale) {
@@ -544,7 +611,7 @@ __global__ void __launch_bounds__(BWD_NT) flash_bwd_dkv_kernel(
 //   P = exp(sm_scale q k^T - lse), dS = P * (dO v^T - di), dq = sm_scale dS k
 // ------------------------------------------------------------------------
 template <typename T, int HD>
-__global__ void __launch_bounds__(BWD_NT) flash_bwd_dq_kernel(
+__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ di,
     T* __restrict__ dq, int seq, int causal, float scale) {
@@ -655,7 +722,11 @@ __global__ void __launch_bounds__(BWD_NT) flash_bwd_dq_kernel(
     }
 }
 
-template <int HD> constexpr size_t fwd_smem() { return sizeof(float) * (3 * BN * (HD + 1) + BM * LDP); }
+
+template <typename T, int HD> constexpr size_t fwd_smem() {
+  constexpr int tiles = (sizeof(T) == 2 ? 1 : 2) * (4 * fwd_k_rows<HD>() + (fwd_q_in_regs<HD>() ? 0 : BM));
+  return sizeof(uint32_t) * tiles * word_ld<HD>();
+}
 template <typename T, int HD> constexpr size_t dkv_smem() {
   return sizeof(T) * (2 * BN + 4 * dkv_q_rows<HD>()) * tile_ld<T, HD>() +
          sizeof(float) * 4 * dkv_q_rows<HD>();
@@ -678,7 +749,7 @@ int launch(Kernel kernel, int threads, size_t smem, int bh, int seq, cudaStream_
 template <typename T, int HD>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int seq,
         int causal, float sm_scale, cudaStream_t stream) {
-  return launch(flash_fwd_kernel<T, HD>, NT, fwd_smem<HD>(), bh, seq, stream, (const T*)q,
+  return launch(flash_fwd_kernel<T, HD>, NT, fwd_smem<T, HD>(), bh, seq, stream, (const T*)q,
                 (const T*)k, (const T*)v, (T*)o, lse, seq, causal, sm_scale * LOG2E);
 }
 
@@ -686,7 +757,7 @@ template <typename T, int HD>
 int dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
         const float* di, void* dk, void* dv, int bh, int seq, int causal, float sm_scale,
         cudaStream_t stream) {
-  return launch(flash_bwd_dkv_kernel<T, HD>, BWD_NT, dkv_smem<T, HD>(), bh, seq, stream,
+  return launch(flash_bwd_dkv_kernel<T, HD>, NT, dkv_smem<T, HD>(), bh, seq, stream,
                 (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, di, (T*)dk, (T*)dv,
                 seq, causal, sm_scale);
 }
@@ -695,7 +766,7 @@ template <typename T, int HD>
 int dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
        const float* di, void* dq_, int bh, int seq, int causal, float sm_scale,
        cudaStream_t stream) {
-  return launch(flash_bwd_dq_kernel<T, HD>, BWD_NT, dq_smem<T, HD>(), bh, seq, stream,
+  return launch(flash_bwd_dq_kernel<T, HD>, NT, dq_smem<T, HD>(), bh, seq, stream,
                 (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, di, (T*)dq_, seq,
                 causal, sm_scale);
 }

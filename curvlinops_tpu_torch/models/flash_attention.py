@@ -7,12 +7,14 @@ three Pallas kernels (forward, ``bwd_dkv``, ``bwd_dq``) are CUDA C++ for
 ``sm_90a`` here (``csrc/flash_attention.cu``; its header says what bounds
 them and how they are laid out), compiled with ``nvcc`` at first use and
 called through ``ctypes`` (:mod:`curvlinops_tpu_torch.utils.cuda_build`).
-The forward runs on the float32 CUDA cores. The two backward kernels run
-their products on the tensor cores (``mma.sync`` TF32, each float32 operand
-split into two TF32 parts, "3xTF32", and short tensor-core sums added in
-float32, for float32 accuracy), stream their tiles through a two-stage
-``cp.async`` ring, and keep ``P`` and ``dS`` in registers between the two
-products of each tile.
+All three run their products on the tensor cores (``mma.sync`` TF32, each
+float32 operand split into two TF32 parts, "3xTF32", and short tensor-core
+sums added in float32, for float32 accuracy; the helpers are shared with
+the conv kernel in ``../csrc/tf32_mma.cuh``), stream their tiles through a
+two-stage ``cp.async`` ring, and keep ``P`` and ``dS`` in registers between
+the two products of each tile. The forward splits each element once per CTA
+(``q`` into registers, each streamed ``k`` and ``v`` tile into shared hi/lo
+pairs).
 
 :func:`flash_attention` is a ``torch.autograd.Function`` on the JAX layout
 ``[B, H, T, hd]``. Its forward returns ``o`` and keeps the per-row

@@ -10,6 +10,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,11 +28,20 @@ NVCC_FLAGS = [
 _libraries: dict[Path, ctypes.CDLL] = {}
 
 
+def _with_headers(source: Path) -> bytes:
+    """The source's bytes followed by those of the headers it includes with
+    ``#include "..."`` (one level: the port's headers include no others)."""
+    text = source.read_bytes()
+    names = re.findall(rb'^#include "([^"]+)"', text, flags=re.M)
+    return text + b"".join((source.parent / n.decode()).read_bytes() for n in names)
+
+
 def build(source: Path, build_dir: Path = BUILD_DIR) -> tuple[Path, float, str]:
     """Compile one kernel source with ``nvcc`` for ``sm_90a``.
 
-    The library's name carries the source's stem and a hash of the source
-    and flags, so an edited source is rebuilt; an existing build is reused.
+    The library's name carries the source's stem and a hash of the source,
+    the headers it includes and the flags, so an edited source or header is
+    rebuilt; an existing build is reused.
     Builds of different sources may run at the same time.
 
     Returns:
@@ -41,8 +51,7 @@ def build(source: Path, build_dir: Path = BUILD_DIR) -> tuple[Path, float, str]:
     Raises:
         RuntimeError: If ``nvcc`` is missing or the compilation fails.
     """
-    src = source.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(_with_headers(source) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = build_dir / f"{source.stem}-{digest}.so"
     if lib_path.exists():
         return lib_path, 0.0, ""

@@ -87,6 +87,49 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         kernels.conv_input_covariance(x, _meta(16, 3, 1, 8))
 
 
+# (B, C, size, kernel, stride): the two extremes of ResNet-18's convs and a
+# channel count that is a multiple of 8 but not of 16
+EXTREMES = {
+    "few_tiles_many_rows": (512, 64, 8, 3, 1),  # d = 576: 45 tiles, 32,768 rows
+    "many_tiles_few_rows": (128, 512, 1, 3, 1),  # d = 4,608: 2,628 tiles, 128 rows
+    "C24": (16, 24, 9, 3, 2),  # d = 216, 16-byte chunks of 4 channels
+}
+
+
+def _extreme(case, device, dtype):
+    B, C, size, kernel, stride = EXTREMES[case]
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn((B, C, size, size), generator=gen).relu().to(device, dtype)
+    return x, _meta(C, kernel, stride, size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bias_pad", [None, 1.0], ids=["nobias", "pad1"])
+@pytest.mark.parametrize("case", list(EXTREMES))
+def test_kernel_matches_plain_at_the_extremes(cuda, case, bias_pad, dtype):
+    """Few tiles over many rows (split over blockIdx.z), many tiles over few
+    rows, and C = 24: relative Frobenius error below 1e-5 in float32, below
+    1e-2 in bfloat16, as at the small geometries."""
+    x, meta = _extreme(case, cuda, dtype)
+    cov, S = kernels.conv_input_covariance(x, meta, bias_pad)
+    plain, plain_S = kernels.conv_input_covariance_plain(x, meta, bias_pad)
+    torch.cuda.synchronize()
+    assert S == plain_S and cov.dtype == dtype
+    assert rel_err(cov, plain) < (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_is_deterministic(cuda, dtype):
+    """Two calls on the same input give bitwise identical covariances: no
+    atomics, the row splits summed in a fixed order."""
+    x, meta = _extreme("few_tiles_many_rows", cuda, dtype)
+    a, _ = kernels.conv_input_covariance(x, meta, 1.0)
+    b, _ = kernels.conv_input_covariance(x, meta, 1.0)
+    assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_kfac_factors_kernel_path_match_plain_path(cuda):
     """A narrow ResNet's KFAC input factors through the kernel agree with
@@ -187,6 +230,48 @@ def test_flash_backward_kernels_large_logits(cuda, causal):
     refs = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     for name, a, b in (("dq", dq, refs[0]), ("dk", dk, refs[1]), ("dv", dv, refs[2])):
         assert rel_err(a, b) < 1e-4, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape", [(2, 3, 1000, 64), (2, 3, 100, 32), (1, 2, 1000, 128), (2, 2, 100, 128)],
+    ids=["T1000hd64", "T100hd32", "T1000hd128", "T100hd128"],
+)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_forward_ragged_and_head_dims(cuda, shape, causal):
+    """The forward kernel at ragged T (the last key and query tiles masked)
+    and head dims 32, 64 and 128 (q kept in shared memory at 128): ``o`` and
+    ``lse`` within 1e-4 of the plain version in float32."""
+    q, k, v, _ = _qkv_do(shape, cuda, torch.float32, seed=5)
+    kw = dict(causal=causal, sm_scale=shape[-1] ** -0.5)
+    o, lse = tfa.flash_attention_fwd_kernel(q, k, v, **kw)
+    o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, **kw)
+    assert rel_err(o, o_ref) < 1e-4 and rel_err(lse, lse_ref) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_forward_kernel_is_deterministic(cuda, dtype):
+    """Two forward calls give bitwise identical ``o`` and ``lse``."""
+    q, k, v, _ = _qkv_do((2, 3, 333, 64), cuda, dtype, seed=6)
+    kw = dict(causal=True, sm_scale=0.125)
+    (o1, lse1), (o2, lse2) = (tfa.flash_attention_fwd_kernel(q, k, v, **kw) for _ in range(2))
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_forward_large_logits(cuda, causal):
+    """float32 with q scaled by 4 and k by 2 (scaled scores past +-30): the
+    online softmax's rescales and the split products keep ``o`` and ``lse``
+    within 1e-4 of the plain version."""
+    q, k, v, _ = _qkv_do((2, 3, 256, 64), cuda, torch.float32, seed=4)
+    q, k = 4 * q, 2 * k
+    kw = dict(causal=causal, sm_scale=0.125)
+    assert float((q @ k.transpose(-1, -2)).abs().max()) * 0.125 > 30
+    o, lse = tfa.flash_attention_fwd_kernel(q, k, v, **kw)
+    o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, **kw)
+    assert rel_err(o, o_ref) < 1e-4 and rel_err(lse, lse_ref) < 1e-4
 
 
 @pytest.mark.cuda

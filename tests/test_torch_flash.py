@@ -8,6 +8,8 @@ on the card (``tests/test_torch_cuda.py``). Inputs come from numpy with a
 seed; all float32 unless stated.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +19,9 @@ from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu.flash_attention import flash_attention as jflash
 
 from curvlinops_tpu_torch.models import flash_attention as tfa
-from tests.test_torch_helpers import assert_close
+from tests.test_torch_helpers import assert_close, capped_torch_threads, split_3xtf32, tf32
+
+_threads = capped_torch_threads()
 
 B, H, T, HD = 2, 2, 128, 16
 SM_SCALE = 1.0 / np.sqrt(HD)
@@ -131,27 +135,15 @@ def test_vmap_rule_folds_into_batch():
     assert_close(o_batched[1], o, 1e-6, 1e-6, "vmapped forward")
 
 
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
-    from zero, on the bits viewed as int32, as the kernels round ``hi``."""
-    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _tf32_truncated(x: torch.Tensor) -> torch.Tensor:
-    """float32 as the tensor core reads a TF32 operand: the low 13 bits dropped."""
-    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
 def _einsum_tf32(eq, a, b):
     """One TF32 product per float32 product (float32 sums)."""
-    return torch.einsum(eq, _tf32(a), _tf32(b))
+    return torch.einsum(eq, tf32(a), tf32(b))
 
 
 def _einsum_3xtf32(eq, a, b):
-    """The backward kernels' 3xTF32 product: ``a_hi = tf32(a)``, ``a_lo = a - a_hi``
+    """The kernels' 3xTF32 product: ``a_hi = tf32(a)``, ``a_lo = a - a_hi``
     as the tensor core reads it, ``a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi``."""
-    a_hi, b_hi = _tf32(a), _tf32(b)
-    a_lo, b_lo = _tf32_truncated(a - a_hi), _tf32_truncated(b - b_hi)
+    (a_hi, a_lo), (b_hi, b_lo) = split_3xtf32(a), split_3xtf32(b)
     return sum(torch.einsum(eq, x, y) for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)))
 
 
@@ -189,6 +181,53 @@ def test_3xtf32_split_meets_the_float32_gate(logits):
     for name, a, b, c in zip(("dq", "dk", "dv"), split, one_pass, refs):
         assert float((a - c).norm() / c.norm()) < 1e-5, name
         assert float((b - c).norm() / c.norm()) > 1e-5, name
+
+
+FWD_KEYS = 32  # keys per streamed tile of the forward kernel (16 at hd = 128)
+
+
+def _fwd_with(einsum, q, k, v, sm_scale, keys=FWD_KEYS):
+    """The forward kernel's order (causal): key tiles of ``keys`` rows from
+    key 0, scores through ``einsum``, the online max and sum in base 2 with
+    the ``alpha`` rescale of ``o``, and ``P`` through ``einsum`` as the A
+    operand of ``P v``. Returns ``(o, lse)``."""
+    T = q.shape[-2]
+    rows = torch.arange(T)[:, None]
+    m = torch.full(q.shape[:-1], float("-inf"))
+    l = torch.zeros(q.shape[:-1])
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, T, keys):
+        kt, vt = k[..., k0:k0 + keys, :], v[..., k0:k0 + keys, :]
+        s = einsum("bhqd,bhkd->bhqk", q, kt) * (sm_scale * math.log2(math.e))
+        s = s.masked_fill(torch.arange(k0, k0 + kt.shape[-2])[None, :] > rows, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        m_sub = torch.where(m_new == float("-inf"), 0.0, m_new)  # no visible key yet
+        alpha, p = torch.exp2(m - m_sub), torch.exp2(s - m_sub[..., None])
+        l, m = l * alpha + p.sum(-1), m_new
+        acc = acc * alpha[..., None] + einsum("bhqk,bhkd->bhqd", p, vt)
+    return acc / l[..., None], (m + torch.log2(l)) * math.log(2.0)
+
+
+@pytest.mark.parametrize("logits", ["unit", "large"])
+def test_3xtf32_forward_meets_the_float32_gate(logits):
+    """The forward kernel's order and split: with the 3xTF32 split on
+    ``q k^T`` and on ``P v`` (``P`` split as the A operand) and the online
+    softmax over 32-key tiles, ``o`` and ``lse`` agree with the float32
+    plain version within 1e-5 relative Frobenius error, the bound the
+    backward emulation uses; one TF32 pass puts ``o`` outside it. "large"
+    scales q by 4 and k by 2, as the card tests of large logits do."""
+    rng = np.random.default_rng(4)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal((1, 2, 256, 64)).astype(np.float32)) for _ in range(3)
+    )
+    if logits == "large":
+        q, k = 4 * q, 2 * k
+    o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, causal=True, sm_scale=0.125)
+    o, lse = _fwd_with(_einsum_3xtf32, q, k, v, 0.125)
+    o_one, _ = _fwd_with(_einsum_tf32, q, k, v, 0.125)
+    assert float((o - o_ref).norm() / o_ref.norm()) < 1e-5
+    assert float((lse - lse_ref).norm() / lse_ref.norm()) < 1e-5
+    assert float((o_one - o_ref).norm() / o_ref.norm()) > 1e-5
 
 
 def test_cpu_tensors_take_the_plain_path():

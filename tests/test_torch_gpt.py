@@ -25,7 +25,9 @@ from curvlinops_tpu_torch.models import flash_attention as tfa
 from curvlinops_tpu_torch.models import gpt as tgpt
 from curvlinops_tpu_torch.models.common import from_jax_params, to_jax_params
 from curvlinops_tpu_torch.models.resnet import kfac_restricted
-from tests.test_torch_helpers import assert_close, jax_name, rel_fro
+from tests.test_torch_helpers import assert_close, capped_torch_threads, jax_name, rel_fro
+
+_threads = capped_torch_threads()
 
 GEOMETRY = dict(block_size=128, vocab_size=64, n_layer=2, n_head=2, n_embd=32)
 BATCH = 2

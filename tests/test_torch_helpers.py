@@ -13,6 +13,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from curvlinops_tpu.models import resnet as jresnet
@@ -20,6 +21,27 @@ from curvlinops_tpu_torch.models import common as tcommon
 from curvlinops_tpu_torch.models import resnet as tresnet
 
 NARROW_WIDTHS = (16, 16, 32, 32)
+TEST_THREADS = 1  # torch intra-op threads while a port test module runs
+
+
+def capped_torch_threads():
+    """A module-scoped autouse fixture that runs a test module's torch ops on
+    :data:`TEST_THREADS` intra-op threads and restores the previous count.
+
+    The suite runs under several pytest workers on one machine; torch's
+    default of one thread per core in every worker oversubscribes the cores
+    (a 1.6 s float64 ``gradcheck`` took 138 s under six workers). Bind it in
+    a test module as ``_threads = capped_torch_threads()``.
+    """
+
+    @pytest.fixture(scope="module", autouse=True)
+    def _capped():
+        before = torch.get_num_threads()
+        torch.set_num_threads(TEST_THREADS)
+        yield
+        torch.set_num_threads(before)
+
+    return _capped
 
 
 def assert_close(actual, expected, rtol: float, atol: float, name: str) -> None:
@@ -30,6 +52,24 @@ def assert_close(actual, expected, rtol: float, atol: float, name: str) -> None:
     if not np.allclose(a, b, rtol=rtol, atol=atol):
         err = np.abs(a - b).max()
         raise AssertionError(f"{name}: max abs diff {err} (rtol={rtol}, atol={atol})")
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, on the bits viewed as int32, as the kernels round ``hi``."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_truncated(x: torch.Tensor) -> torch.Tensor:
+    """float32 as the tensor core reads a TF32 operand: the low 13 bits dropped."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split_3xtf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' 3xTF32 split of float32 ``x``: ``hi = tf32(x)`` and
+    ``lo = x - hi`` as the tensor core reads it."""
+    hi = tf32(x)
+    return hi, tf32_truncated(x - hi)
 
 
 def rel_fro(actual, expected) -> float:

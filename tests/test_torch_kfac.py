@@ -24,7 +24,9 @@ from curvlinops_tpu_torch.curvature.loss_hessian import sample_grad_outputs
 from curvlinops_tpu_torch.kfac.operator import KFACLinearOperator
 from curvlinops_tpu_torch.losses import CrossEntropyLoss, MSELoss
 from curvlinops_tpu_torch.models.resnet import from_jax_params
-from tests.test_torch_helpers import jax_name, narrow_resnet, rel_fro
+from tests.test_torch_helpers import capped_torch_threads, jax_name, narrow_resnet, rel_fro
+
+_threads = capped_torch_threads()
 
 # relative Frobenius tolerances: factors and matvecs are float32 sums in
 # another order (measured 3e-6); damped inverses amplify that by up to

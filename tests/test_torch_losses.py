@@ -15,6 +15,9 @@ from curvlinops_tpu import losses as jlosses
 from curvlinops_tpu.curvature import loss_hessian as jlh
 from curvlinops_tpu_torch import losses as tlosses
 from curvlinops_tpu_torch.curvature import loss_hessian as tlh
+from tests.test_torch_helpers import capped_torch_threads
+
+_threads = capped_torch_threads()
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -12,7 +12,9 @@ import torch
 from curvlinops_tpu.models import resnet as jresnet
 from curvlinops_tpu_torch.models import gpt as tgpt
 from curvlinops_tpu_torch.models import resnet as tresnet
-from tests.test_torch_helpers import assert_close, narrow_resnet
+from tests.test_torch_helpers import assert_close, capped_torch_threads, narrow_resnet
+
+_threads = capped_torch_threads()
 
 
 @pytest.fixture(scope="module")
