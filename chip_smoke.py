@@ -39,7 +39,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    factors through the kernels agree with the einsum path's;
 7. runs each main path's factor pass, inverse and matvec once more under
    ``torch.profiler`` and prints device time by kernel and the busy share;
-8. prints a JSON line of kernel results and, last, a JSON status line.
+8. the empirical-risk curvature operators, which reach none of the four
+   kernels (forward mode; ResNet on cuDNN, the GPT on einsum attention):
+   on ResNet-18 at batch 512, the exact GGN, the MC Fisher, the Hessian and
+   the empirical Fisher, each built with its determinism probes (timed),
+   one matvec of each timed (CUDA events, median of 10 after 3 warm-ups,
+   with the spread) and profiled, one matmat of two columns of each timed
+   and held column by column against the matvecs, the gradient timed,
+   symmetry,
+   ``v^T G v >= 0`` for the GGN, MC Fisher and EF, the same data as 2
+   batches of 256 against 1 of 512, and the Jacobian and its transpose as
+   adjoints; on GPT-2 small (batch 4, T = 1024, einsum attention) the GGN,
+   Hessian and EF built with their probes, one matvec of each timed and
+   profiled with its peak memory, a two-column GGN matmat timed and held
+   against the matvecs, GGN symmetry, and the flash GPT's
+   refusal of forward mode (the one expected
+   exception, checked by type and message); and each operator on the card
+   against the same code on the CPU in float64 (a narrow ResNet and a tiny
+   MLP), plus the tiny MLP's operators against the dense oracles of
+   ``curvlinops_tpu_torch.examples`` on the card;
+9. prints a JSON line of kernel results and, last, a JSON status line.
 
 Each kernel's bound is the larger of its bytes (each input read once, each
 output written once) at 3.35 TB/s and its float32 products at the card's
@@ -71,6 +90,9 @@ F32_TOL = 1e-4  # relative Frobenius error, float32: summation order differs
 BF16_TOL = 1e-2  # both versions round the float32 result to bfloat16 (2^-8)
 FACTOR_TOL = 1e-4  # KFAC factors, kernel path vs plain path
 ORACLE_RTOL, ORACLE_ATOL = 1e-3, 1e-5  # as in the port's CPU oracle tests
+CURV_TOL = 1e-4  # float32 curvature checks: symmetry, batch split, adjoint
+CARD_CPU_TOL = 1e-10  # float64, the card against the CPU and the dense oracles
+CURV_BATCH_SPLIT = 2  # the ResNet batch as this many equal batches
 # published H100 SXM peaks (NVIDIA's data sheet), dense: TF32 tensor cores
 # (495 TFLOP/s) and HBM3 bandwidth. Every bound states float32 products at the
 # card's fastest float32-accurate route, 3xTF32 (three TF32 products per
@@ -87,8 +109,9 @@ def rel_err(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def time_ms(fn, torch, reps: int = 20) -> float:
-    """Median device time of ``fn`` in ms, from CUDA events around each call."""
+def event_times(fn, torch, reps: int = 20) -> list[float]:
+    """Device times of ``fn`` in ms, from CUDA events around each of ``reps``
+    calls after 3 warm-up calls."""
     for _ in range(3):
         fn()
     times = []
@@ -99,7 +122,12 @@ def time_ms(fn, torch, reps: int = 20) -> float:
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+    return times
+
+
+def time_ms(fn, torch, reps: int = 20) -> float:
+    """Median device time of ``fn`` in ms (:func:`event_times`)."""
+    return statistics.median(event_times(fn, torch, reps))
 
 
 def alternated_ms(plain, kernel, torch) -> tuple[float, float]:
@@ -116,6 +144,7 @@ def device_profile(torch, label: str, fn) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t_start = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -131,7 +160,7 @@ def device_profile(torch, label: str, fn) -> None:
     device_ms = sum(ms for ms, _ in by_name.values())
     print(
         f"profile, {label}: wall {wall_ms:.3f} ms, device {device_ms:.3f} ms, "
-        f"busy {device_ms / wall_ms:.3f}"
+        f"busy {device_ms / wall_ms:.3f} (profiling took {time.perf_counter() - t_start:.1f} s)"
     )
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     for rank, (name, (ms, n)) in enumerate(ranked):
@@ -220,8 +249,15 @@ def main() -> None:
         for kernel, (n, hmma) in sass_counts(lib_path).items():
             print(f"  sass: {kernel} (float32): {n} instructions, {hmma} HMMA (TF32 tensor core)")
 
+    marks = [time.perf_counter()]
     entries = [resnet_phases(torch, dev, kernels)]
+    marks.append(time.perf_counter())
     entries += gpt_phases(torch, dev, fa)
+    marks.append(time.perf_counter())
+    curvature_phases(torch, dev, smi)
+    marks.append(time.perf_counter())
+    print("phase seconds: ResNet-18 kernel and KFAC {:.1f}, GPT kernels and KFAC {:.1f}, "
+          "curvature operators {:.1f}".format(*(b - a for a, b in zip(marks, marks[1:]))))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -703,6 +739,249 @@ def gpt_phases(torch, dev, fa) -> list[dict]:
         }
         for n in FLASH_KERNELS
     ]
+
+
+# ---------------------------------------------------------------------- #
+# the empirical-risk curvature operators (no port kernel on their path)
+# ---------------------------------------------------------------------- #
+def flat(tree) -> "torch.Tensor":
+    """A tree's leaves concatenated in leaf order, in float64."""
+    import torch
+
+    return torch.cat([t.reshape(-1).double() for t in tree.values()])
+
+
+def symmetry_error(A, u: dict, v: dict) -> float:
+    """``|u^T (A v) - v^T (A u)| / (|u| |A v|)``."""
+    Av, Au = flat(A @ v), flat(A @ u)
+    fu, fv = flat(u), flat(v)
+    return float((fu @ Av - fv @ Au).abs() / (fu.norm() * Av.norm()))
+
+
+def time_matvec(torch, A, v, label: str, smi: str) -> float:
+    """CUDA-event time of ``A @ v``: median of 10 after 3 warm-ups, with the
+    spread; returns the median."""
+    times = event_times(lambda: A @ v, torch, reps=10)
+    med = statistics.median(times)
+    print(f"  {label} matvec: {med:.3f} ms (median of 10; min {min(times):.3f}, "
+          f"max {max(times):.3f}) [{smi}]")
+    return med
+
+
+def check_matmat(torch, A, vectors: list, label: str, smi: str) -> float:
+    """``A @ V`` on the columns ``V = [v_1, ..., v_K]`` (the columns mapped by
+    ``torch.func.vmap``): timed like a matvec, with its peak memory, and each
+    column held against ``A @ v_k`` to ``CURV_TOL``; returns the median ms."""
+    V = torch.stack([torch.cat([t.reshape(-1) for t in v.values()]) for v in vectors], dim=1)
+    AV = A @ V
+    for k, v in enumerate(vectors):
+        err = rel_err(AV[:, k], torch.cat([t.reshape(-1) for t in (A @ v).values()]))
+        if not err <= CURV_TOL:
+            raise RuntimeError(f"{label}: column {k} of A @ V against A @ v: {err} (tol {CURV_TOL})")
+    dev = V.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = event_times(lambda: A @ V, torch, reps=10)
+    med = statistics.median(times)
+    print(f"  {label} matmat, {V.shape[1]} columns: {med:.3f} ms (median of 10; min "
+          f"{min(times):.3f}, max {max(times):.3f}); peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; columns vs matvecs "
+          f"within {CURV_TOL} [{smi}]")
+    return med
+
+
+def curvature_phases(torch, dev, smi: str) -> None:
+    """The operators of ``risk.py`` on ResNet-18 (B=512) and GPT-2 small
+    (B=4, T=1024, einsum), then the card against the CPU in float64."""
+    from curvlinops_tpu_torch import (
+        EFLinearOperator,
+        GGNLinearOperator,
+        HessianLinearOperator,
+        JacobianLinearOperator,
+        TransposedJacobianLinearOperator,
+    )
+    from curvlinops_tpu_torch.models.flash_attention import FORWARD_MODE_REFUSAL
+    from curvlinops_tpu_torch.models.gpt import GPTConfig, shakespeare_nanogpt
+    from curvlinops_tpu_torch.models.resnet import cifar10_resnet18
+    from curvlinops_tpu_torch.utils.flatten import tree_randn_like
+
+    def probe(A, seed: int) -> dict:
+        return tree_randn_like(torch.Generator().manual_seed(seed), A.in_spec)
+
+    # ---- ResNet-18/CIFAR-10, batch 512, float32 ----------------------- #
+    problem = cifar10_resnet18(batch_size=BATCH, seed=0, device=dev)
+    args = (problem.model, problem.loss_fn, problem.params, problem.data)
+    n_params = sum(p.numel() for p in problem.params.values())
+    print(f"curvature operators, ResNet-18/CIFAR-10, batch {BATCH}, {n_params} parameters, "
+          "float32, TF32 off:")
+    operators = {
+        "GGN": lambda **kw: GGNLinearOperator(*args, **kw),
+        "MC Fisher": lambda **kw: GGNLinearOperator(*args, mc_samples=1, **kw),
+        "Hessian": lambda **kw: HessianLinearOperator(*args, **kw),
+        "EF": lambda **kw: EFLinearOperator(*args, **kw),
+    }
+    for label, build in operators.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A = build(check_deterministic=True)
+        torch.cuda.synchronize()
+        print(f"  {label}: built with the determinism probes in "
+              f"{time.perf_counter() - t0:.3f} s [{smi}]")
+        u, v = probe(A, 1), probe(A, 2)
+        time_matvec(torch, A, v, label, smi)
+        check_matmat(torch, A, [u, v], label, smi)
+        device_profile(torch, f"ResNet-18 {label} matvec", lambda: A @ v)
+        sym = symmetry_error(A, u, v)
+        print(f"  {label} symmetry |u^T Av - v^T Au| / (|u| |Av|): {sym:.2e} (tol {CURV_TOL})")
+        if not sym <= CURV_TOL:
+            raise RuntimeError(f"{label} is not symmetric on the card: {sym}")
+        if label != "Hessian":
+            vGv = float(flat(v) @ flat(A @ v))
+            print(f"  {label} v^T A v = {vGv:.6e} (>= 0)")
+            if not vGv >= 0:
+                raise RuntimeError(f"{label}: v^T A v = {vGv} < 0")
+        if label == "GGN":
+            ggn, v_ggn = A, v
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grad, loss = A.gradient_and_loss()
+            torch.cuda.synchronize()
+            print(f"  gradient_and_loss: {time.perf_counter() - t0:.3f} s (loss {float(loss):.6f}) "
+                  f"[{smi}]")
+            grad_ms = time_ms(A.gradient_and_loss, torch, reps=10)
+            print(f"  gradient_and_loss, warm: {grad_ms:.3f} ms (median of 10) [{smi}]")
+            if not all(g.isfinite().all() for g in grad.values()):
+                raise RuntimeError("the ResNet gradient is not finite")
+        del A
+
+    # the same data as several batches: streamed accumulation on the card
+    X, y = problem.data[0]
+    chunks = list(zip(X.chunk(CURV_BATCH_SPLIT), y.chunk(CURV_BATCH_SPLIT)))
+    split = GGNLinearOperator(problem.model, problem.loss_fn, problem.params, chunks,
+                              check_deterministic=False)
+    one, two = flat(ggn @ v_ggn), flat(split @ v_ggn)
+    err = float((two - one).norm() / one.norm())
+    print(f"  GGN, {CURV_BATCH_SPLIT} batches of {len(chunks[0][0])} vs 1 of {len(X)}: "
+          f"rel err {err:.2e} (tol {CURV_TOL})")
+    if not err <= CURV_TOL:
+        raise RuntimeError("multi-batch accumulation disagrees with one batch")
+    del split
+
+    J = JacobianLinearOperator(problem.model, problem.params, problem.data)
+    JT = TransposedJacobianLinearOperator(problem.model, problem.params, problem.data)
+    v = probe(J, 3)
+    # a prediction-space vector, flat: [N * 10]
+    w = torch.randn(JT.shape[1], generator=torch.Generator().manual_seed(4)).to(dev)
+    Jv, JTw = J @ v, JT @ w
+    lhs = float(w.double() @ Jv.double().reshape(-1))
+    rhs = float(JTw.double() @ flat(v))
+    err = abs(lhs - rhs) / float(w.double().norm() * Jv.double().norm())
+    print(f"  Jacobian {tuple(Jv.shape)}: w^T (J v) {lhs:.6e}, (J^T w)^T v {rhs:.6e}, "
+          f"rel err {err:.2e} (tol {CURV_TOL})")
+    if not err <= CURV_TOL:
+        raise RuntimeError("the Jacobian and its transpose are not adjoint on the card")
+    del problem, args, operators, ggn, J, JT, chunks
+    torch.cuda.empty_cache()
+
+    # ---- GPT-2 small, batch 4, T = 1024, einsum attention ------------- #
+    config = GPT_CONFIG or GPTConfig()
+    gpt = shakespeare_nanogpt(GPT_BATCH, config, seed=0, device=dev, attention_impl="einsum")
+    args = (gpt.model, gpt.loss_fn, gpt.params, gpt.data)
+    print(f"curvature operators, nanoGPT {config.n_layer} layers, width {config.n_embd}, "
+          f"T {config.block_size}, batch {GPT_BATCH}, einsum attention, float32:")
+    for label, cls in (("GGN", GGNLinearOperator), ("Hessian", HessianLinearOperator),
+                       ("EF", EFLinearOperator)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A = cls(*args, check_deterministic=True)
+        torch.cuda.synchronize()
+        print(f"  GPT {label}: built with the determinism probes in "
+              f"{time.perf_counter() - t0:.3f} s [{smi}]")
+        v = probe(A, 5)
+        torch.cuda.reset_peak_memory_stats(dev)
+        time_matvec(torch, A, v, f"GPT {label}", smi)
+        print(f"  GPT {label} peak device memory: "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        device_profile(torch, f"GPT {label} matvec", lambda: A @ v)
+        if label == "GGN":
+            check_matmat(torch, A, [probe(A, 6), v], f"GPT {label}", smi)
+            sym = symmetry_error(A, probe(A, 6), v)
+            print(f"  GPT GGN symmetry: {sym:.2e} (tol {CURV_TOL})")
+            if not sym <= CURV_TOL:
+                raise RuntimeError(f"the GPT GGN is not symmetric on the card: {sym}")
+        del A
+        torch.cuda.empty_cache()
+    del gpt, args
+
+    # the flash GPT refuses forward mode: the one expected exception
+    flash = shakespeare_nanogpt(GPT_BATCH, config, seed=0, device=dev, attention_impl="flash")
+    try:
+        GGNLinearOperator(flash.model, flash.loss_fn, flash.params, flash.data)
+    except NotImplementedError as err:
+        if str(err) != FORWARD_MODE_REFUSAL:
+            raise RuntimeError(f"the flash GPT raised another error: {err}") from err
+        print(f"  flash GPT GGN refused: {err}")
+    else:
+        raise RuntimeError("the flash GPT's GGN did not refuse forward mode")
+    del flash
+    torch.cuda.empty_cache()
+
+    card_against_cpu(torch, dev)
+
+
+def card_against_cpu(torch, dev) -> None:
+    """Each operator's matvec on the card against the same code on the CPU,
+    float64, on a narrow ResNet and a tiny MLP; on the tiny MLP each operator
+    against the port's dense oracles on the card."""
+    from curvlinops_tpu_torch import (
+        EFLinearOperator,
+        GGNLinearOperator,
+        HessianLinearOperator,
+        JacobianLinearOperator,
+        TransposedJacobianLinearOperator,
+        examples,
+    )
+    from curvlinops_tpu_torch.losses import CrossEntropyLoss
+    from curvlinops_tpu_torch.models.mlp import tiny_mlp_problem
+    from curvlinops_tpu_torch.models.resnet import narrow_resnet_problem
+
+    loss_fn = CrossEntropyLoss("mean")
+    builders = {
+        "GGN": lambda m, p, d: GGNLinearOperator(m, loss_fn, p, d),
+        "Hessian": lambda m, p, d: HessianLinearOperator(m, loss_fn, p, d),
+        "EF": lambda m, p, d: EFLinearOperator(m, loss_fn, p, d),
+        "Jacobian": lambda m, p, d: JacobianLinearOperator(m, p, d),
+        "transposed Jacobian": lambda m, p, d: TransposedJacobianLinearOperator(m, p, d),
+    }
+    worst = 0.0
+    for name, make in (("narrow ResNet", narrow_resnet_problem), ("tiny MLP", tiny_mlp_problem)):
+        (m_c, p_c, d_c), (m_g, p_g, d_g) = (
+            (p.model, p.params, p.data) for p in (make(device="cpu"), make(device=dev))
+        )
+        for label, build in builders.items():
+            A_c, A_g = build(m_c, p_c, d_c), build(m_g, p_g, d_g)
+            V = torch.randn((A_c.shape[1], 2), generator=torch.Generator().manual_seed(7),
+                            dtype=torch.float64)
+            on_cpu, on_card = A_c @ V, (A_g @ V.to(dev)).cpu()
+            err = float((on_card - on_cpu).norm() / on_cpu.norm())
+            worst = max(worst, err)
+            if not err <= CARD_CPU_TOL:
+                raise RuntimeError(f"{name} {label}: card vs CPU rel err {err} (tol {CARD_CPU_TOL})")
+            if name == "tiny MLP":
+                dense = {
+                    "GGN": lambda: examples.dense_ggn(m_g, loss_fn, p_g, d_g),
+                    "Hessian": lambda: examples.dense_hessian(m_g, loss_fn, p_g, d_g),
+                    "EF": lambda: examples.dense_empirical_fisher(m_g, loss_fn, p_g, d_g),
+                    "Jacobian": lambda: examples.dense_jacobian(m_g, p_g, d_g),
+                    "transposed Jacobian": lambda: examples.dense_jacobian(m_g, p_g, d_g).T,
+                }[label]()
+                mat = A_g @ torch.eye(A_g.shape[1], dtype=torch.float64, device=dev)
+                err = float((mat - dense).norm() / dense.norm())
+                print(f"  tiny MLP {label} on the card vs examples.dense_*: rel err {err:.2e} "
+                      f"(tol {CARD_CPU_TOL})")
+                if not err <= CARD_CPU_TOL:
+                    raise RuntimeError(f"tiny MLP {label} disagrees with the dense oracle")
+    print(f"  card vs CPU, float64, 5 operators x 2 models: worst rel err {worst:.2e} "
+          f"(tol {CARD_CPU_TOL})")
 
 
 if __name__ == "__main__":

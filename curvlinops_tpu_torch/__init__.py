@@ -3,15 +3,27 @@
 The package mirrors ``curvlinops_tpu``'s module paths. It imports ``torch``
 and never ``jax``; the JAX package stays the reference, and the port's
 tests hold each module against its JAX counterpart on the CPU. The slices
-ported so far run KFAC on ResNet-18/CIFAR-10 and on nanoGPT (GPT-2 small):
-losses and loss-Hessian structure, the ResNet and GPT models, the operator
-core (base, block-diagonal, eigh, Kronecker), and the KFAC collector,
-factor computation, damped inverses and matvec. The TPU kernels on those
-paths are hand-written CUDA kernels for Hopper: the conv input covariance
-(``kfac/kernels.py``, ``kfac/csrc/``) and causal flash attention, forward
-and backward (``models/flash_attention.py``, ``models/csrc/``).
+ported so far run KFAC on ResNet-18/CIFAR-10 and on nanoGPT (GPT-2 small),
+and the empirical-risk curvature operators: losses and loss-Hessian
+structure, the ResNet, GPT and MLP models, the operator core (base,
+block-diagonal, eigh, Kronecker), the KFAC collector, factor computation,
+damped inverses and matvec, ``risk.py``'s ``EmpiricalRiskOperator`` and
+the GGN/MC-Fisher, Hessian, empirical-Fisher and (transposed) Jacobian
+operators built on it, and the dense oracles of :mod:`examples`. The TPU
+kernels on those paths are hand-written CUDA kernels for Hopper: the conv
+input covariance (``kfac/kernels.py``, ``kfac/csrc/``) and causal flash
+attention, forward and backward (``models/flash_attention.py``,
+``models/csrc/``).
 """
 
+from curvlinops_tpu_torch import examples
+from curvlinops_tpu_torch.curvature.ef import EFLinearOperator
+from curvlinops_tpu_torch.curvature.ggn import GGNLinearOperator
+from curvlinops_tpu_torch.curvature.hessian import HessianLinearOperator
+from curvlinops_tpu_torch.curvature.jacobian import (
+    JacobianLinearOperator,
+    TransposedJacobianLinearOperator,
+)
 from curvlinops_tpu_torch.curvature.loss_hessian import FisherType, KFACType
 from curvlinops_tpu_torch.kfac.operator import KFACLinearOperator
 from curvlinops_tpu_torch.losses import BCEWithLogitsLoss, CrossEntropyLoss, MSELoss
@@ -27,8 +39,17 @@ from curvlinops_tpu_torch.ops.base import (
 from curvlinops_tpu_torch.ops.blockdiag import BlockDiagonalLinearOperator
 from curvlinops_tpu_torch.ops.eigh import EighDecomposedLinearOperator
 from curvlinops_tpu_torch.ops.kronecker import KroneckerProductLinearOperator
+from curvlinops_tpu_torch.risk import CurvatureLinearOperator, EmpiricalRiskOperator
 
 __all__ = [
+    "examples",
+    "EmpiricalRiskOperator",
+    "CurvatureLinearOperator",
+    "HessianLinearOperator",
+    "GGNLinearOperator",
+    "EFLinearOperator",
+    "JacobianLinearOperator",
+    "TransposedJacobianLinearOperator",
     "FisherType",
     "KFACType",
     "KFACLinearOperator",

@@ -13,7 +13,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable
 
-import numpy as np
 import torch
 
 from curvlinops_tpu_torch.curvature.ef import flatten_prediction, flatten_target
@@ -30,7 +29,12 @@ from curvlinops_tpu_torch.kfac.kernels import (
     conv_input_covariance,
 )
 from curvlinops_tpu_torch.losses import SUPPORTED_LOSSES, CrossEntropyLoss
-from curvlinops_tpu_torch.risk import _num_loss_terms_in_batch, default_batch_size
+from curvlinops_tpu_torch.ops.base import close_by_norm
+from curvlinops_tpu_torch.risk import (
+    _num_loss_terms_in_batch,
+    batch_generator,
+    default_batch_size,
+)
 
 
 @dataclass
@@ -102,15 +106,6 @@ def build_groups(layers: list[LayerUse], separate_weight_and_bias: bool) -> list
                 ParamGroup(name, key, bias_path, uses, joint, d_in + joint, d_out)
             )
     return groups
-
-
-def batch_generator(seed: int, batch_index: int, device: torch.device) -> torch.Generator:
-    """Generator for one batch: ``seed`` folded with the batch index, so a
-    rebuild draws the same MC samples for every batch."""
-    state = np.random.SeedSequence([seed, batch_index]).generate_state(1, np.uint64)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(state[0]))
-    return gen
 
 
 class KFACComputer:
@@ -320,5 +315,5 @@ class KFACComputer:
             l2, g2 = one_pass()
         if not torch.allclose(l1, l2, rtol=5e-5, atol=1e-6):
             raise RuntimeError("Check for deterministic total loss failed.")
-        if not all((a - b).norm() <= 5e-5 * b.norm() + 1e-6 for a, b in zip(g1, g2)):
+        if not all(close_by_norm(a, b, 5e-5, 1e-6) for a, b in zip(g1, g2)):
             raise RuntimeError("Check for deterministic total gradient failed.")

@@ -148,14 +148,16 @@ def conv_input_covariance(
         x_nhwc = x_nhwc.clone()
     ws = torch.empty((splits, d, d), dtype=torch.float32, device=x.device)
     out = torch.empty((d, d), dtype=x.dtype, device=x.device)
-    err = lib.conv_input_covariance(
-        x_nhwc.data_ptr(), ws.data_ptr(), out.data_ptr(),
-        int(x.dtype == torch.bfloat16),
-        geo["B"], geo["H"], geo["W"], geo["C"], geo["kh"], geo["kw"],
-        geo["sh"], geo["sw"], geo["ph"], geo["pw"], geo["Ho"], geo["Wo"],
-        int(bias_pad is not None), float(bias_pad or 0.0),
-        splits, rows_per_split, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    # the library sets its attributes and launches on the current device
+    with torch.cuda.device(x.device):
+        err = lib.conv_input_covariance(
+            x_nhwc.data_ptr(), ws.data_ptr(), out.data_ptr(),
+            int(x.dtype == torch.bfloat16),
+            geo["B"], geo["H"], geo["W"], geo["C"], geo["kh"], geo["kw"],
+            geo["sh"], geo["sw"], geo["ph"], geo["pw"], geo["Ho"], geo["Wo"],
+            int(bias_pad is not None), float(bias_pad or 0.0),
+            splits, rows_per_split, torch.cuda.current_stream(x.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"conv_input_covariance kernel launch failed: CUDA error {err}.")
     conv_input_covariance.launches += 1

@@ -1,4 +1,4 @@
-"""Model zoo: ResNet-18/50 and the nanoGPT transformer (the KFAC main paths' models)."""
+"""Model zoo: ResNet-18/50, the nanoGPT transformer and the MNIST MLP."""
 
 from curvlinops_tpu_torch.models.common import Problem, from_jax_params, to_jax_params
 from curvlinops_tpu_torch.models.gpt import (
@@ -8,6 +8,7 @@ from curvlinops_tpu_torch.models.gpt import (
     init_gpt,
     shakespeare_nanogpt,
 )
+from curvlinops_tpu_torch.models.mlp import init_mlp, mlp_apply, mnist_mlp, tiny_mlp_problem
 from curvlinops_tpu_torch.models.resnet import (
     ResNet,
     calibrate_bn,
@@ -15,6 +16,8 @@ from curvlinops_tpu_torch.models.resnet import (
     imagenet_resnet50,
     init_resnet,
     kfac_restricted,
+    narrow_resnet,
+    narrow_resnet_problem,
 )
 
 __all__ = [
@@ -28,8 +31,14 @@ __all__ = [
     "from_jax_params",
     "imagenet_resnet50",
     "init_gpt",
+    "init_mlp",
     "init_resnet",
     "kfac_restricted",
+    "mlp_apply",
+    "mnist_mlp",
+    "narrow_resnet",
+    "narrow_resnet_problem",
     "shakespeare_nanogpt",
+    "tiny_mlp_problem",
     "to_jax_params",
 ]

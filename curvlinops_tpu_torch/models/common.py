@@ -6,7 +6,7 @@ from __future__ import annotations
 import math
 import re
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -17,13 +17,14 @@ from torch import nn
 class Problem:
     """A benchmark problem: model, loss, parameters and one data batch.
 
-    The JAX package's functional ``model_fn`` is an ``nn.Module`` here, and
-    ``kfac_params`` names the parameters KFAC covers (conv/linear weights and
-    biases with all dims <= 50k); the remaining parameters stay in the module.
+    The JAX package's functional ``model_fn`` is an ``nn.Module`` here (the
+    MLP stays a callable ``(params, X) -> prediction``), and ``kfac_params``
+    names the parameters KFAC covers (conv/linear weights and biases with
+    all dims <= 50k); the remaining parameters stay in the module.
     """
 
     name: str
-    model: nn.Module
+    model: nn.Module | Callable
     loss_fn: Any
     params: dict
     data: list
@@ -124,12 +125,18 @@ def from_jax_params(params_np: dict, model: nn.Module) -> dict[str, torch.Tensor
 
 
 def to_jax_params(named: dict[str, torch.Tensor], model: nn.Module) -> dict:
-    """Inverse of :func:`from_jax_params`: a nested dict of numpy arrays."""
+    """Inverse of :func:`from_jax_params`: a nested dict of numpy arrays.
+
+    Each array keeps its tensor's dtype, but bfloat16 (which numpy lacks)
+    becomes float32.
+    """
     tree: dict = {}
     for name, t in named.items():
         *prefix, leaf = name.split(".")
         owner = _owner(model, name)
-        arr = t.detach().float().cpu()
+        arr = t.detach().cpu()
+        if arr.dtype == torch.bfloat16:
+            arr = arr.float()
         if leaf == "weight" and isinstance(owner, nn.Conv2d):
             arr = arr.permute(2, 3, 1, 0)
         elif leaf == "weight" and isinstance(owner, nn.Linear):

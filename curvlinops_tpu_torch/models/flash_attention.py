@@ -24,7 +24,10 @@ and launches the ``dkv`` and ``dq`` kernels. The backward is a second
 Function with a ``vmap`` rule that folds the vmapped dimension into ``B``,
 so a batched backward (``torch.func.vmap`` over ``torch.autograd.grad``, as
 the KFAC factor pass runs for several grad-output vectors) launches each
-kernel once; the forward has the same rule.
+kernel once; the forward has the same rule. Neither Function has forward
+mode: their ``jvp`` raises :data:`FORWARD_MODE_REFUSAL`, as the JAX kernel's
+``custom_vjp`` refuses ``jax.jvp``, so the forward-mode curvature operators
+(GGN, MC Fisher, Hessian, EF, Jacobians) run the GPT on einsum attention.
 
 On a CPU tensor the Functions compute the plain versions
 (:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`, which
@@ -204,10 +207,12 @@ def flash_attention_fwd_kernel(
     lib = cuda_build.load(SOURCE, _bind)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    err = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        int(q.dtype == torch.bfloat16), B * H, T, hd, int(causal), float(sm_scale), _stream(q),
-    )
+    # the library sets its attributes and launches on the current device
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            int(q.dtype == torch.bfloat16), B * H, T, hd, int(causal), float(sm_scale), _stream(q),
+        )
     _raise_on(err, "flash_attention_fwd")
     launches["fwd"] += 1
     return o, lse
@@ -220,11 +225,12 @@ def flash_attention_bwd_dkv_kernel(
     B, H, T, hd = _check_cuda(q, k, v, do)
     lib = cuda_build.load(SOURCE, _bind)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = lib.flash_attention_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        _row_stats(lse, (B, H, T)), _row_stats(di, (B, H, T)), dk.data_ptr(), dv.data_ptr(),
-        int(q.dtype == torch.bfloat16), B * H, T, hd, int(causal), float(sm_scale), _stream(q),
-    )
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            _row_stats(lse, (B, H, T)), _row_stats(di, (B, H, T)), dk.data_ptr(), dv.data_ptr(),
+            int(q.dtype == torch.bfloat16), B * H, T, hd, int(causal), float(sm_scale), _stream(q),
+        )
     _raise_on(err, "flash_attention_bwd_dkv")
     launches["bwd_dkv"] += 1
     return dk, dv
@@ -237,11 +243,12 @@ def flash_attention_bwd_dq_kernel(
     B, H, T, hd = _check_cuda(q, k, v, do)
     lib = cuda_build.load(SOURCE, _bind)
     dq = torch.empty_like(q)
-    err = lib.flash_attention_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        _row_stats(lse, (B, H, T)), _row_stats(di, (B, H, T)), dq.data_ptr(),
-        int(q.dtype == torch.bfloat16), B * H, T, hd, int(causal), float(sm_scale), _stream(q),
-    )
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            _row_stats(lse, (B, H, T)), _row_stats(di, (B, H, T)), dq.data_ptr(),
+            int(q.dtype == torch.bfloat16), B * H, T, hd, int(causal), float(sm_scale), _stream(q),
+        )
     _raise_on(err, "flash_attention_bwd_dq")
     launches["bwd_dq"] += 1
     return dq
@@ -283,6 +290,14 @@ def _unfold(t: torch.Tensor, n: int) -> torch.Tensor:
     return t.reshape(n, t.shape[0] // n, *t.shape[1:])
 
 
+FORWARD_MODE_REFUSAL = (
+    "Flash attention has no forward mode (jvp): its kernels are differentiable "
+    "once, in reverse mode, like the JAX kernel's custom_vjp. The GGN, MC Fisher, "
+    "Hessian, empirical Fisher and Jacobian operators use forward mode; build the "
+    "GPT with attention_impl=\"einsum\" for them."
+)
+
+
 class _FlashAttentionBackward(torch.autograd.Function):
     """``(dq, dk, dv)`` of :class:`_FlashAttention`; not differentiable again."""
 
@@ -297,6 +312,10 @@ class _FlashAttentionBackward(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):  # noqa: D102
         raise NotImplementedError("Flash attention is differentiable once (reverse mode).")
+
+    @staticmethod
+    def jvp(ctx, *tangents):  # noqa: D102
+        raise NotImplementedError(FORWARD_MODE_REFUSAL)
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, o, lse, do, causal, sm_scale):  # noqa: D102
@@ -328,6 +347,10 @@ class _FlashAttention(torch.autograd.Function):
             q, k, v, o, lse, do.contiguous(), ctx.causal, ctx.sm_scale
         )
         return dq, dk, dv, None, None
+
+    @staticmethod
+    def jvp(ctx, *tangents):  # noqa: D102
+        raise NotImplementedError(FORWARD_MODE_REFUSAL)
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, causal, sm_scale):  # noqa: D102

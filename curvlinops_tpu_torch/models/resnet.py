@@ -290,6 +290,39 @@ def _problem(name, arch, num_classes, batch_size, hw, calib, seed, dtype, device
     )
 
 
+NARROW_WIDTHS = (16, 16, 32, 32)
+
+
+def narrow_resnet() -> ResNet:
+    """A ResNet for 10 classes with one basic block per stage, widths
+    16/16/32/32 and a 16-channel stem: every stride-2 padding case of
+    ResNet-18 at a test size. Its weights are as ``nn.Module`` draws them."""
+    return ResNet("basic", (1, 1, 1, 1), NARROW_WIDTHS, 10, stem_width=NARROW_WIDTHS[0])
+
+
+def narrow_resnet_problem(device="cuda") -> Problem:
+    """:func:`narrow_resnet` in float64 on two 16x16 images from seed 0:
+    every parameter drawn from ``N(0, 1 / fan_in)``, BatchNorm calibrated on
+    8 images of which the first two are the data (on two images the deepest
+    1x1 maps would leave near-zero variances)."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(0)
+    model = narrow_resnet().double()
+    with torch.no_grad():
+        for p in model.parameters():
+            fan_in = max(1, p[0].numel())
+            p.copy_(torch.randn(p.shape, generator=gen, dtype=p.dtype) / math.sqrt(fan_in))
+    X = torch.rand((8, 3, 16, 16), generator=gen, dtype=torch.float64)
+    model.load_state_dict(calibrate_bn(model, X), strict=False)
+    y = torch.randint(0, 10, (2,), generator=gen)
+    model = model.to(device)
+    _, kfac_params = kfac_restricted(model)
+    return Problem(
+        "narrow_resnet", model, CrossEntropyLoss("mean"), dict(model.named_parameters()),
+        [(X[:2].to(device), y.to(device))], kfac_params,
+    )
+
+
 def cifar10_resnet18(
     batch_size: int = 512, seed: int = 0, dtype=torch.float32, device="cuda"
 ) -> Problem:

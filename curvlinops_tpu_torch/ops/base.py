@@ -32,9 +32,16 @@ from curvlinops_tpu_torch.utils.flatten import (
     spec_leaves,
     spec_size,
     tree_add,
+    tree_randn_like,
     tree_scale,
     zeros_like_spec,
 )
+
+
+def close_by_norm(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float) -> bool:
+    """``||a - b|| <= rtol ||b|| + atol`` in float64 (integer tensors too)."""
+    a, b = a.detach().double(), b.detach().double()
+    return a.shape == b.shape and bool((a - b).norm() <= rtol * b.norm() + atol)
 
 
 def cached_program(A, key: tuple, build: Callable):
@@ -119,6 +126,15 @@ class LinearOperator:
 
     @staticmethod
     def _classify(x: Any, spec: Any, size: int) -> str:
+        s_leaves, s_def = pytree.tree_flatten(spec)
+        # a space that is one tensor of rank > 1 (the Jacobians' prediction
+        # space) takes that tensor, with or without a column axis; a rank-1
+        # one reads a bare tensor as flat, as the JAX package does
+        if isinstance(x, torch.Tensor) and s_def.is_leaf() and len(s_leaves[0].shape) > 1:
+            if tuple(x.shape) == s_leaves[0].shape:
+                return _FMT_TREE
+            if tuple(x.shape[:-1]) == s_leaves[0].shape:
+                return _FMT_TREE_COLS
         if isinstance(x, (np.ndarray, torch.Tensor)):
             is_np = isinstance(x, np.ndarray)
             if x.ndim == 1 and x.shape[0] == size:
@@ -127,7 +143,6 @@ class LinearOperator:
                 return _FMT_NP_MAT if is_np else _FMT_FLAT_MAT
             raise ValueError(f"Flat input must be [{size}] or [{size}, K], got {tuple(x.shape)}.")
         x_leaves, x_def = pytree.tree_flatten(x)
-        s_leaves, s_def = pytree.tree_flatten(spec)
         if x_def == s_def and all(isinstance(v, torch.Tensor) for v in x_leaves):
             shapes = [tuple(v.shape) for v in x_leaves]
             if all(s == sp.shape for s, sp in zip(shapes, s_leaves)):
@@ -232,6 +247,38 @@ class LinearOperator:
         """Materialize as a dense ``[out_dim, in_dim]`` tensor (small operators)."""
         eye = torch.eye(self.shape[1], dtype=self.dtype, device=self.device)
         return self @ eye
+
+    def matvec_tree(self, v: Any) -> Any:
+        """Apply to a tree vector (no column axis), returning a tree."""
+        out = self._matmat(pytree.tree_map(lambda leaf: leaf[..., None], v))
+        return pytree.tree_map(lambda leaf: leaf[..., 0], out)
+
+    # ---- safety rails --------------------------------------------------- #
+    def check_deterministic_matvec(
+        self, seed: int = 0, rtol: float = 5e-5, atol: float = 1e-6
+    ) -> None:
+        """Two matvecs of one random vector must agree.
+
+        The JAX package compares entrywise; here each output leaf is compared
+        by norm, ``||a - b|| <= rtol ||b|| + atol`` (:func:`close_by_norm`):
+        cuDNN's weight-gradient kernels sum with atomics, so entries near
+        zero differ between two runs on a GPU by more than an entrywise
+        tolerance, while a nondeterministic model or data order still
+        differs by the output's own size.
+
+        Raises:
+            RuntimeError: If the two results differ beyond tolerance.
+        """
+        v = tree_randn_like(torch.Generator().manual_seed(seed), self._in_spec)
+        r1, r2 = self.matvec_tree(v), self.matvec_tree(v)
+        if not all(
+            close_by_norm(a, b, rtol, atol)
+            for a, b in zip(pytree.tree_leaves(r1), pytree.tree_leaves(r2))
+        ):
+            raise RuntimeError(
+                "Check for deterministic matvec failed: two applications of "
+                "the operator to the same vector differ."
+            )
 
     # ---- counterparts of the JAX package's program caching ------------- #
     def traced(self, ncols: int = 1) -> tuple[Callable, tuple]:

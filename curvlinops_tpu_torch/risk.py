@@ -1,18 +1,47 @@
-"""Dataset statistics shared by the curvature operators.
+"""Empirical-risk machinery shared by all curvature operators.
 
-PyTorch counterpart of the two helpers in ``curvlinops_tpu/risk.py`` that
-the KFAC computer needs. ``EmpiricalRiskOperator`` and
-``CurvatureLinearOperator`` come with the GGN-vector-product slice.
+PyTorch counterpart of ``curvlinops_tpu/risk.py``. An operator is built from
+a model (an ``nn.Module`` applied with ``torch.func.functional_call`` to a
+dict of named parameters, or a plain callable ``(params, X) ->
+prediction``), a loss, the parameters at which the curvature is evaluated,
+and an iterable of ``(X, y)`` batches. The per-batch matrix-matrix product
+is one function ``(params, X, y, M, c, generator) -> c * A_batch M`` built
+with ``torch.func`` transforms; ``_matmat`` streams the dataset and adds the
+per-batch results on the device.
+
+Differences from the JAX package:
+
+- Streaming is the only data loop. The JAX package fuses a multi-batch
+  loop into one XLA program (``_fused_matmat``); it computes the same
+  matrix with fewer dispatches.
+- Randomness comes from one ``torch.Generator`` per batch,
+  :func:`batch_generator` of the operator's seed and the batch index, in
+  the order the data is read (the JAX package's ``fold_in``): chained or
+  repeated matvecs replay the same samples.
+- The determinism rails compare gradients and matvecs by norm
+  (:func:`~curvlinops_tpu_torch.ops.base.close_by_norm`): cuDNN's
+  weight-gradient atomics make two identical passes differ entrywise.
+- Cross-entropy targets are checked on the host before any loss is
+  computed: on a GPU an out-of-range class index is a device-side assert
+  that ends the CUDA context.
+- No ``mesh=``/``data_axis=`` (data parallelism) and no ``linearized()``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any
+from collections.abc import Iterable
+from typing import Any, Callable
 
+import numpy as np
 import torch
+from torch import nn
+from torch.utils import _pytree as pytree
 
 from curvlinops_tpu_torch.losses import CrossEntropyLoss, Loss
+from curvlinops_tpu_torch.ops.base import LinearOperator, close_by_norm
+from curvlinops_tpu_torch.utils.flatten import spec_of, tree_add
+from curvlinops_tpu_torch.utils.misc import as_model_fn
 
 
 def default_batch_size(X: Any) -> int:
@@ -32,3 +61,306 @@ def _num_loss_terms_in_batch(loss_func: Loss, y: torch.Tensor) -> int:
     if isinstance(loss_func, CrossEntropyLoss):
         return math.prod(shape) if shape else 1
     return math.prod(shape[:-1]) if len(shape) > 1 else shape[0]
+
+
+def batch_generator(seed: int, batch_index: int, device: torch.device) -> torch.Generator:
+    """Generator for one batch: ``seed`` folded with the batch index, so every
+    pass over the data draws the same samples for every batch."""
+    state = np.random.SeedSequence([seed, batch_index]).generate_state(1, np.uint64)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(state[0]))
+    return gen
+
+
+def _tree_close(a: Any, b: Any, rtol: float, atol: float) -> bool:
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(close_by_norm(x, y, rtol, atol) for x, y in zip(la, lb))
+
+
+class EmpiricalRiskOperator(LinearOperator):
+    """Base for operators defined by autodiff over an empirical-risk dataset.
+
+    Args:
+        model: An ``nn.Module`` (applied with ``functional_call`` to
+            ``params``; its other parameters and buffers stay fixed) or a
+            callable ``(params, X) -> prediction``.
+        loss_fn: A :class:`curvlinops_tpu_torch.losses.Loss` (or any callable
+            ``(prediction, y) -> scalar`` with a ``reduction`` attribute), or
+            ``None`` for loss-independent operators (Jacobians).
+        params: The parameters at which the matrix is evaluated: a dict of
+            named tensors (any tree for a callable ``model``).
+        data: Iterable of ``(X, y)`` mini-batches; ``X`` may be a dict
+            (with ``batch_size_fn``).
+        batch_size_fn: Batch size from ``X``; defaults to the first tensor's
+            leading dim.
+        num_data: Dataset size; inferred with one traversal if ``None``.
+        num_per_example_loss_terms: Loss terms per example (e.g. tokens per
+            sequence); inferred when required and ``None``.
+        check_deterministic: Run the two-pass loss/gradient and the
+            double-matvec determinism probes at construction.
+        seed: Base seed of operators that sample (MC Fisher); each batch's
+            generator is :func:`batch_generator` of it and the batch index.
+        mesh, data_axis: Not ported (data parallelism); must be ``None``.
+        progressbar: Show a tqdm progress bar over batches.
+        max_vmap_columns: Bound on the columns of a matmat mapped at once.
+
+    Raises:
+        NotImplementedError: If ``mesh`` or ``data_axis`` is given.
+        ValueError: If ``model`` is not callable or ``loss_fn`` has no
+            ``'mean'``/``'sum'`` reduction.
+    """
+
+    SELF_ADJOINT: bool = False
+    FIXED_DATA_ORDER: bool = False
+    NEEDS_NUM_PER_EXAMPLE_LOSS_TERMS: bool = False
+    USES_RANDOMNESS: bool = False
+
+    def __init__(
+        self,
+        model: nn.Module | Callable[[Any, Any], torch.Tensor],
+        loss_fn: Loss | None,
+        params: Any,
+        data: Iterable[tuple[Any, Any]],
+        *,
+        batch_size_fn: Callable[[Any], int] | None = None,
+        num_data: int | None = None,
+        num_per_example_loss_terms: int | None = None,
+        check_deterministic: bool = True,
+        seed: int = 2147483647,
+        mesh=None,
+        data_axis: str | None = None,
+        progressbar: bool = False,
+        max_vmap_columns: int | None = None,
+        in_spec: Any = None,
+        out_spec: Any = None,
+    ):
+        if mesh is not None or data_axis is not None:
+            raise NotImplementedError(
+                "mesh= and data_axis= (data-parallel operators) are not ported yet."
+            )
+        if loss_fn is not None and getattr(loss_fn, "reduction", None) not in ("mean", "sum"):
+            raise ValueError(
+                "loss_fn must expose a `reduction` attribute equal to 'mean' "
+                f"or 'sum' (got {getattr(loss_fn, 'reduction', None)!r}); "
+                "use the losses in curvlinops_tpu_torch.losses."
+            )
+        self._model_fn = as_model_fn(model)
+        self._loss_fn = loss_fn
+        self._params = pytree.tree_map(lambda t: t.detach(), params)
+        self._data = data
+        self._batch_size_fn = batch_size_fn or default_batch_size
+        self._seed = seed
+        self._progressbar = progressbar
+        self._max_vmap_columns = max_vmap_columns
+        self._batch_matmat_fn: Callable | None = None
+
+        param_spec = spec_of(self._params)
+        super().__init__(
+            param_spec if in_spec is None else in_spec,
+            param_spec if out_spec is None else out_spec,
+        )
+        self._N_data, self._num_per_example_loss_terms = self._get_data_statistics(
+            num_data, num_per_example_loss_terms
+        )
+        if check_deterministic:
+            self._check_deterministic()
+            self.check_deterministic_matvec()
+
+    # ---- data statistics and iteration ---------------------------------- #
+    @property
+    def num_data(self) -> int:
+        """Number of data points in the dataset."""
+        return self._N_data
+
+    @property
+    def num_per_example_loss_terms(self) -> int | None:
+        """Loss terms per example, when tracked."""
+        return self._num_per_example_loss_terms
+
+    def _get_data_statistics(
+        self, num_data: int | None, num_per_example_loss_terms: int | None
+    ) -> tuple[int, int | None]:
+        """Infer the dataset size and loss terms per example in at most one
+        traversal (shapes only).
+
+        Raises:
+            ValueError: If the loss terms are not divisible by the data count.
+        """
+        need_n = num_data is None
+        need_terms = (
+            self.NEEDS_NUM_PER_EXAMPLE_LOSS_TERMS
+            and self._loss_fn is not None
+            and num_per_example_loss_terms is None
+        )
+        if not need_n and not need_terms:
+            return num_data, num_per_example_loss_terms
+        n_acc, terms_acc = 0, 0
+        for X, y in self._data:
+            if need_n:
+                n_acc += self._batch_size_fn(X)
+            if need_terms:
+                terms_acc += _num_loss_terms_in_batch(self._loss_fn, y)
+        n = n_acc if need_n else num_data
+        if need_terms:
+            if terms_acc % n != 0:
+                raise ValueError(
+                    "The number of loss terms must be divisible by the number of "
+                    f"data points; num_loss_terms={terms_acc}, N_data={n}."
+                )
+            num_per_example_loss_terms = terms_acc // n
+        return n, num_per_example_loss_terms
+
+    def _loop_over_data(self, desc: str | None = None):
+        """Yield the mini-batches (through tqdm when ``progressbar``)."""
+        data_iter = self._data
+        if self._progressbar:
+            try:
+                from tqdm import tqdm
+
+                data_iter = tqdm(data_iter, desc=f"{type(self).__name__}.{desc or 'batches'}")
+            except ImportError:
+                pass
+        yield from data_iter
+
+    def _get_normalization_factor(self, X: Any, y: Any) -> float:
+        """Batch-to-dataset normalization: ``B / N`` for mean, 1 for sum."""
+        if self._loss_fn is None:
+            return 1.0
+        return {"sum": 1.0, "mean": self._batch_size_fn(X) / self._N_data}[
+            self._loss_fn.reduction
+        ]
+
+    # ---- the hot path: accumulated per-batch matmat --------------------- #
+    def _make_batch_matmat(self) -> Callable:
+        """The per-batch kernel ``(params, X, y, M, c, generator) -> c * A_b M``;
+        ``M`` carries a trailing column axis on every leaf."""
+        raise NotImplementedError
+
+    def _matmat(self, M: Any) -> Any:
+        if self._batch_matmat_fn is None:
+            self._batch_matmat_fn = self._make_batch_matmat()
+        AM = None
+        for idx, (X, y) in enumerate(self._loop_over_data(desc="matmat")):
+            gen = batch_generator(self._seed, idx, self.device) if self.USES_RANDOMNESS else None
+            out = self._batch_matmat_fn(
+                self._params, X, y, M, self._get_normalization_factor(X, y), gen
+            )
+            AM = out if AM is None else tree_add(AM, out)
+        if AM is None:
+            raise ValueError("Empty dataset: no batches to accumulate over.")
+        return AM
+
+    # ---- gradient and loss over the dataset ----------------------------- #
+    def gradient_and_loss(self) -> tuple[Any, torch.Tensor]:
+        """The full-dataset gradient and loss, ``(gradient tree, scalar loss)``.
+
+        Raises:
+            ValueError: If no loss function was specified.
+        """
+        if self._loss_fn is None:
+            raise ValueError("No loss function specified.")
+        model_fn, loss_fn = self._model_fn, self._loss_fn
+        total_loss, total_grad = None, None
+        for X, y in self._loop_over_data(desc="gradient_and_loss"):
+            c = self._get_normalization_factor(X, y)
+            grad, loss = torch.func.grad_and_value(
+                lambda p: c * loss_fn(model_fn(p, X), y)
+            )(self._params)
+            total_loss = loss if total_loss is None else total_loss + loss
+            total_grad = grad if total_grad is None else tree_add(total_grad, grad)
+        return total_grad, total_loss
+
+    # ---- determinism rails ---------------------------------------------- #
+    def _batch_pred_loss_grad(self):
+        """Yield ``((X, y), prediction, loss, grad)`` per batch.
+
+        The targets are checked (:meth:`_validate_targets`) after the forward
+        pass, which gives the class count, and before the loss.
+        """
+        model_fn, loss_fn = self._model_fn, self._loss_fn
+        for X, y in self._loop_over_data(desc="check_deterministic"):
+            if loss_fn is None:
+                with torch.no_grad():
+                    pred = model_fn(self._params, X)
+                yield (X, y), pred, None, None
+                continue
+            pred, vjp_fn = torch.func.vjp(lambda p: model_fn(p, X), self._params)
+            self._validate_targets(pred, y)
+            c = self._get_normalization_factor(X, y)
+            grad_pred, loss = torch.func.grad_and_value(lambda q: c * loss_fn(q, y))(pred)
+            yield (X, y), pred, loss, vjp_fn(grad_pred)[0]
+
+    def _validate_targets(self, pred: torch.Tensor, y: torch.Tensor) -> None:
+        """Refuse cross-entropy targets outside ``[0, C)`` that are not
+        ``ignore_index``, on the host.
+
+        Raises:
+            ValueError: On any out-of-range target.
+        """
+        loss_fn = self._loss_fn
+        if not isinstance(loss_fn, CrossEntropyLoss):
+            return
+        C = pred.shape[1]
+        y_np = y.detach().cpu().numpy()
+        valid = ((y_np >= 0) & (y_np < C)) | (y_np == loss_fn.ignore_index)
+        if not valid.all():
+            bad = np.unique(y_np[~valid])[:10]
+            raise ValueError(
+                f"Cross-entropy targets outside [0, {C}) that are not "
+                f"ignore_index={loss_fn.ignore_index}: {bad.tolist()}."
+            )
+
+    def _check_deterministic(self, rtol: float = 5e-5, atol: float = 1e-6) -> None:
+        """Two independent data passes must agree: total loss entrywise,
+        total gradient by norm, and each batch when ``FIXED_DATA_ORDER``.
+
+        Raises:
+            RuntimeError: On any detected non-determinism.
+        """
+        has_loss = self._loss_fn is not None
+        tl1 = tl2 = tg1 = tg2 = None
+        for (b1, pred1, loss1, grad1), (b2, pred2, loss2, grad2) in zip(
+            self._batch_pred_loss_grad(), self._batch_pred_loss_grad()
+        ):
+            if self.FIXED_DATA_ORDER:
+                self._check_deterministic_batch(
+                    b1, b2, pred1, pred2, loss1, loss2, grad1, grad2, rtol, atol
+                )
+            if has_loss:
+                tl1 = loss1 if tl1 is None else tl1 + loss1
+                tl2 = loss2 if tl2 is None else tl2 + loss2
+                tg1 = grad1 if tg1 is None else tree_add(tg1, grad1)
+                tg2 = grad2 if tg2 is None else tree_add(tg2, grad2)
+        if has_loss:
+            if tl1 is None:
+                raise RuntimeError("Empty dataset in determinism check.")
+            if not torch.allclose(tl1, tl2, rtol=rtol, atol=atol):
+                raise RuntimeError("Check for deterministic total loss failed.")
+            if not _tree_close(tg1, tg2, rtol, atol):
+                raise RuntimeError("Check for deterministic total gradient failed.")
+
+    @staticmethod
+    def _check_deterministic_batch(
+        b1, b2, pred1, pred2, loss1, loss2, grad1, grad2, rtol, atol
+    ) -> None:
+        """Per-batch comparison when ``FIXED_DATA_ORDER``.
+
+        Raises:
+            RuntimeError: On any per-batch mismatch.
+        """
+        (X1, y1), (X2, y2) = b1, b2
+        if not _tree_close(X1, X2, rtol, atol):
+            raise RuntimeError("Check for deterministic X failed.")
+        if not _tree_close(y1, y2, rtol, atol):
+            raise RuntimeError("Check for deterministic y failed.")
+        if not _tree_close(pred1, pred2, rtol, atol):
+            raise RuntimeError("Check for deterministic batch prediction failed.")
+        if loss1 is not None:
+            if not _tree_close(loss1, loss2, rtol, atol):
+                raise RuntimeError("Check for deterministic batch loss failed.")
+            if not _tree_close(grad1, grad2, rtol, atol):
+                raise RuntimeError("Check for deterministic batch gradient failed.")
+
+
+class CurvatureLinearOperator(EmpiricalRiskOperator):
+    """Square operators in parameter space (Hessian, GGN, Fisher, ...)."""

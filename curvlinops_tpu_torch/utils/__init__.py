@@ -1,5 +1,6 @@
-"""Library utilities: tree flattening and tree arithmetic; the CUDA kernel
-build helper is :mod:`curvlinops_tpu_torch.utils.cuda_build`."""
+"""Library utilities: tree flattening and tree arithmetic, column mapping,
+and the model-function adapter (:mod:`curvlinops_tpu_torch.utils.misc`); the
+CUDA kernel build helper is :mod:`curvlinops_tpu_torch.utils.cuda_build`."""
 
 from curvlinops_tpu_torch.utils.flatten import (
     TensorSpec,
@@ -7,10 +8,14 @@ from curvlinops_tpu_torch.utils.flatten import (
     spec_dtype,
     spec_of,
     spec_size,
+    ravel_tree,
     tree_add,
+    tree_randn_like,
     tree_scale,
+    vmap_columns,
     zeros_like_spec,
 )
+from curvlinops_tpu_torch.utils.misc import as_model_fn
 
 __all__ = [
     "TensorSpec",
@@ -21,4 +26,8 @@ __all__ = [
     "make_ravel_unravel_cols",
     "tree_add",
     "tree_scale",
+    "tree_randn_like",
+    "ravel_tree",
+    "vmap_columns",
+    "as_model_fn",
 ]

@@ -6,6 +6,10 @@ blocks) to trees; flat ``[N]`` / ``[N, K]`` tensors are accepted at the edge.
 A space is described by a tree of :class:`TensorSpec` leaves, the
 counterpart of ``jax.ShapeDtypeStruct``. Flat order is the tree's leaf order
 (insertion order for dicts).
+
+``vmap_columns`` maps a per-vector function over a trailing column axis,
+and ``tree_randn_like`` draws a probe vector from an explicit
+``torch.Generator`` (the JAX package threads ``jax.random`` keys).
 """
 
 from __future__ import annotations
@@ -100,3 +104,49 @@ def tree_add(a: Any, b: Any) -> Any:
 def tree_scale(c, tree: Any) -> Any:
     """Scale every leaf of a tree by a scalar."""
     return pytree.tree_map(lambda x: c * x, tree)
+
+
+def ravel_tree(tree: Any) -> tuple[torch.Tensor, Callable[[torch.Tensor], Any]]:
+    """``(flat, unravel)``: the tree's leaves concatenated in leaf order, and
+    the map from a flat ``[N]`` tensor back to a tree of the same shapes."""
+    leaves, treedef = pytree.tree_flatten(tree)
+    shapes = [tuple(t.shape) for t in leaves]
+    sizes = [math.prod(s) for s in shapes]
+    flat = torch.cat([t.reshape(-1) for t in leaves])
+
+    def unravel(vec: torch.Tensor) -> Any:
+        parts = torch.split(vec, sizes)
+        return pytree.tree_unflatten(
+            [p.reshape(s) for p, s in zip(parts, shapes)], treedef
+        )
+
+    return flat, unravel
+
+
+def vmap_columns(fn: Callable, M: Any, max_columns: int | None = None) -> Any:
+    """Map ``fn`` (one vector tree -> one tree) over the trailing column axis.
+
+    ``torch.func.vmap`` over K columns multiplies the residual memory of a
+    curvature-vector product by K; ``max_columns`` bounds the columns mapped
+    at once (chunks of at most that many, concatenated).
+    """
+    K = pytree.tree_leaves(M)[0].shape[-1]
+    batched = torch.func.vmap(fn, in_dims=-1, out_dims=-1)
+    if max_columns is None or K <= max_columns:
+        return batched(M)
+    outs = [
+        batched(pytree.tree_map(lambda leaf: leaf[..., start:start + max_columns], M))
+        for start in range(0, K, max_columns)
+    ]
+    return pytree.tree_map(lambda *parts: torch.cat(parts, dim=-1), *outs)
+
+
+def tree_randn_like(generator: torch.Generator, spec: Any, scale: float = 1.0) -> Any:
+    """Standard-normal tree matching a spec, drawn from ``generator`` on the
+    generator's device and moved to each leaf's device."""
+    return pytree.tree_map(
+        lambda s: (scale * torch.randn(
+            s.shape, generator=generator, dtype=s.dtype, device=generator.device
+        )).to(s.device),
+        spec,
+    )

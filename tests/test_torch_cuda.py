@@ -1,7 +1,10 @@
 """The Hopper kernels on a CUDA device, against their plain versions.
 
 The conv-covariance kernel (``kfac/kernels.py``) and the three flash-attention
-kernels (``models/flash_attention.py``: forward, ``bwd_dkv``, ``bwd_dq``).
+kernels (``models/flash_attention.py``: forward, ``bwd_dkv``, ``bwd_dq``),
+including a launch on a second device; and the curvature operators of
+``risk.py`` (which reach no port kernel) on the card against the CPU, their
+multi-batch accumulation, and the flash GPT's refusal of forward mode.
 
 These tests need the card: they skip without one. The card's machine has no
 JAX, so this file imports only the port, and runs there without the suite's
@@ -15,12 +18,21 @@ TF32 is off in every test, so the plain version's matmul runs in float32.
 import pytest
 import torch
 
+from curvlinops_tpu_torch import (
+    EFLinearOperator,
+    GGNLinearOperator,
+    HessianLinearOperator,
+    JacobianLinearOperator,
+    TransposedJacobianLinearOperator,
+)
 from curvlinops_tpu_torch.kfac import kernels
 from curvlinops_tpu_torch.kfac.operator import KFACLinearOperator
 from curvlinops_tpu_torch.losses import CrossEntropyLoss
 from curvlinops_tpu_torch.models import flash_attention as tfa
 from curvlinops_tpu_torch.models import gpt as tgpt
-from curvlinops_tpu_torch.models.resnet import ResNet, same_pads
+from curvlinops_tpu_torch.models import mlp as tmlp
+from curvlinops_tpu_torch.models import resnet as tresnet
+from curvlinops_tpu_torch.models.resnet import ResNet, cifar10_resnet18, same_pads
 
 # (kernel, stride, input size): 3x3/s1 pads (1, 1); 3x3/s2 pads (0, 1), the
 # asymmetric "SAME" case; 1x1/s2 pads (0, 0)
@@ -335,3 +347,89 @@ def test_gpt_kfac_flash_matches_einsum(cuda):
         assert rel_err(ggT, ops["einsum"]._ggT[gi]) < 1e-4
     for gi, aaT in ops["flash"]._aaT.items():
         assert rel_err(aaT, ops["einsum"]._aaT[gi]) < 1e-4
+
+
+# ---------------------------------------------------------------------- #
+# the empirical-risk curvature operators on the card (no port kernel)
+# ---------------------------------------------------------------------- #
+CURVATURE = {
+    "ggn": lambda m, loss, p, d: GGNLinearOperator(m, loss, p, d),
+    "hessian": lambda m, loss, p, d: HessianLinearOperator(m, loss, p, d),
+    "ef": lambda m, loss, p, d: EFLinearOperator(m, loss, p, d),
+    "jacobian": lambda m, loss, p, d: JacobianLinearOperator(m, p, d),
+    "jacobian_t": lambda m, loss, p, d: TransposedJacobianLinearOperator(m, p, d),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", list(CURVATURE))
+@pytest.mark.parametrize("model", ["mlp", "resnet"])
+def test_curvature_operator_card_matches_cpu(cuda, model, op):
+    """The same operator code on the card and on the CPU, float64: a tiny
+    MLP and a narrow ResNet, relative Frobenius error of ``A @ V`` below
+    1e-10."""
+    make = tmlp.tiny_mlp_problem if model == "mlp" else tresnet.narrow_resnet_problem
+    A_cpu = CURVATURE[op](*_args(make(device="cpu")))
+    A_card = CURVATURE[op](*_args(make(device=cuda)))
+    V = torch.randn((A_cpu.shape[1], 3), generator=torch.Generator().manual_seed(0),
+                    dtype=torch.float64)
+    on_cpu = A_cpu @ V
+    assert rel_err((A_card @ V.to(cuda)).cpu(), on_cpu) < 1e-10
+
+
+def _args(problem):
+    return problem.model, problem.loss_fn, problem.params, problem.data
+
+
+@pytest.mark.cuda
+def test_ggn_accumulates_batches_on_card(cuda):
+    """ResNet-18 at full width, B=32: the same data as 2 batches of 16 gives
+    the GGN matvec of 1 batch of 32 (relative error below 1e-4, float32)."""
+    problem = cifar10_resnet18(batch_size=32, device=cuda)
+    X, y = problem.data[0]
+    args = (problem.model, problem.loss_fn, problem.params)
+    one = GGNLinearOperator(*args, problem.data, check_deterministic=False)
+    two = GGNLinearOperator(*args, list(zip(X.chunk(2), y.chunk(2))), check_deterministic=False)
+    v = torch.randn(one.shape[1], generator=torch.Generator().manual_seed(0)).to(cuda)
+    assert rel_err(two @ v, one @ v) < 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_gpt_refuses_forward_mode_on_card(cuda):
+    """The determinism probe's reverse pass runs the kernels (head dim 16);
+    its matvec's forward mode raises the refusal."""
+    config = tgpt.GPTConfig(block_size=32, vocab_size=64, n_layer=2, n_head=2, n_embd=32)
+    problem = tgpt.shakespeare_nanogpt(batch_size=2, config=config, device=cuda,
+                                       attention_impl="flash")
+    with pytest.raises(NotImplementedError) as err:
+        GGNLinearOperator(problem.model, problem.loss_fn, problem.params, problem.data)
+    assert str(err.value) == tfa.FORWARD_MODE_REFUSAL
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_tensors_device(cuda):
+    """Inputs on ``cuda:1`` while device 0 is current: each kernel runs on
+    the inputs' device and agrees with its plain version there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda:1")
+    assert torch.cuda.current_device() == 0
+    gen = torch.Generator().manual_seed(0)
+    meta = _meta(64, 3, 1, 8)
+    x = torch.randn((8, 64, 8, 8), generator=gen).to(dev)
+    cov, _ = kernels.conv_input_covariance(x, meta)
+    plain, _ = kernels.conv_input_covariance_plain(x, meta)
+    assert cov.device == dev and rel_err(cov, plain) < 1e-5
+    q, k, v, do = (torch.randn((1, 2, 64, 64), generator=gen).to(dev) for _ in range(4))
+    kw = dict(causal=True, sm_scale=0.125)
+    o, lse = tfa.flash_attention_fwd_kernel(q, k, v, **kw)
+    o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, **kw)
+    di = (o_ref * do).sum(-1)
+    dk, dv = tfa.flash_attention_bwd_dkv_kernel(q, k, v, do, lse_ref, di, **kw)
+    dq = tfa.flash_attention_bwd_dq_kernel(q, k, v, do, lse_ref, di, **kw)
+    dk_ref, dv_ref = tfa.flash_attention_bwd_dkv_plain(q, k, v, do, lse_ref, di, **kw)
+    dq_ref = tfa.flash_attention_bwd_dq_plain(q, k, v, do, lse_ref, di, **kw)
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+    for a, b in ((o, o_ref), (lse, lse_ref), (dk, dk_ref), (dv, dv_ref), (dq, dq_ref)):
+        assert a.device == dev and rel_err(a, b) < 1e-5

@@ -9,6 +9,8 @@ mode on the CPU, the port's flash Function computes its plain versions on
 CPU tensors. All float32.
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -95,8 +97,12 @@ def kfac_case(case):
 
 @pytest.mark.parametrize("impl", ["einsum", "flash"])
 def test_logits_match_jax(case, impl):
+    # one jitted call, waited for: op by op, the next eager op (a layer
+    # norm on the attention's output) can deadlock against the interpret
+    # mode's io_callbacks, which dispatch JAX ops of their own
+    apply = jax.jit(functools.partial(jgpt.gpt_apply, config=_jax_config(impl)))
     with pltpu.force_tpu_interpret_mode():
-        expected = jgpt.gpt_apply(case["params"], case["X"], config=_jax_config(impl))
+        expected = jax.block_until_ready(apply(case["params"], case["X"]))
     model = _port_model(case["params"], impl)
     with torch.no_grad():
         actual = model(torch.from_numpy(case["X"]))

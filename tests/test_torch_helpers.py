@@ -20,7 +20,7 @@ from curvlinops_tpu.models import resnet as jresnet
 from curvlinops_tpu_torch.models import common as tcommon
 from curvlinops_tpu_torch.models import resnet as tresnet
 
-NARROW_WIDTHS = (16, 16, 32, 32)
+NARROW_WIDTHS = tresnet.NARROW_WIDTHS
 TEST_THREADS = 1  # torch intra-op threads while a port test module runs
 
 
@@ -89,12 +89,12 @@ def jax_name(path) -> str:
 def narrow_resnet(seed: int = 0, batch: int = 2, hw: int = 16, calib: int = 8) -> dict:
     """A narrow ResNet in both packages with the same (calibrated) weights.
 
-    One basic block per stage, widths 16/16/32/32, a 16-channel stem: it
-    passes through every stride-2 padding case of ResNet-18 at a test size.
-    The JAX side is built from ``models/resnet.py``'s own block initialisers.
-    BatchNorm is calibrated on ``calib`` images, of which the first ``batch``
-    are the data: calibrating on two 1x1 maps would leave near-zero variances
-    whose ``1/sqrt(var + eps)`` amplifies float32 roundoff a few hundred times.
+    The port's ``models/resnet.py::narrow_resnet`` geometry: one basic block
+    per stage, widths 16/16/32/32, a 16-channel stem. The JAX side is built
+    from ``models/resnet.py``'s own block initialisers. BatchNorm is
+    calibrated on ``calib`` images, of which the first ``batch`` are the
+    data: calibrating on two 1x1 maps would leave near-zero variances whose
+    ``1/sqrt(var + eps)`` amplifies float32 roundoff a few hundred times.
     """
     keys = jax.random.split(jax.random.key(seed), 8)
     params = {
@@ -119,9 +119,7 @@ def narrow_resnet(seed: int = 0, batch: int = 2, hw: int = 16, calib: int = 8) -
     uncalibrated = jax.tree.map(np.asarray, params)
     params = jresnet.calibrate_bn(params, jnp.asarray(X_calib), block="basic")
 
-    model = tresnet.ResNet(
-        "basic", (1, 1, 1, 1), NARROW_WIDTHS, 10, stem_width=NARROW_WIDTHS[0]
-    )
+    model = tresnet.narrow_resnet()
     model.load_state_dict(tresnet.from_jax_params(jax.tree.map(np.asarray, params), model))
     return dict(
         jax_params=params,
