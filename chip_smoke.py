@@ -58,7 +58,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    against the same code on the CPU in float64 (a narrow ResNet and a tiny
    MLP), plus the tiny MLP's operators against the dense oracles of
    ``curvlinops_tpu_torch.examples`` on the card;
-9. prints a JSON line of kernel results and, last, a JSON status line.
+9. the solvers and inverse operators (``solver_phases``, one JSON line per
+   item), float32: on ResNet-18 at batch 512, CG on the damped GGN
+   ``G + 0.1 I`` over KFAC's parameters, 20 iterations, plain and
+   preconditioned by KFAC's damped inverse (whose factor pass launches the
+   conv kernel; the launches are counted from 0 over this phase), each
+   with its residual curve, ms per iteration against ms per matvec, peak
+   memory and one profiled iteration, the recomputed residual held to the
+   solver's; MINRES on the Hessian + 0.1 I (residuals must not rise); LSMR
+   on the Jacobian (``||J^T (J x - b)||`` must not rise); Neumann scaled by
+   ``1 / (lambda_max + 0.1)`` from Lanczos (finite, and a diverging scale
+   raises); LOBPCG top 4 (descending, non-negative, orthonormal); on the
+   einsum GPT-2 small GGN, 16 Lanczos steps (top Ritz value at least the
+   start's Rayleigh quotient, its residual printed) and a 1,000-index
+   submatrix (a column against the full matvec); and CG, MINRES, LSMR and
+   fast Lanczos on the card against the CPU in float64 (the tiny MLP);
+10. prints a JSON line of kernel results and, last, a JSON status line.
 
 Each kernel's bound is the larger of its bytes (each input read once, each
 output written once) at 3.35 TB/s and its float32 products at the card's
@@ -72,6 +87,7 @@ Any failed check raises, and the script exits nonzero without a status line.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -106,7 +122,9 @@ PORT_KERNELS = ("cov_tiles_kernel", "reduce_mirror_kernel", "flash_fwd_kernel",
 
 
 def rel_err(a, b) -> float:
-    return float((a.float() - b.float()).norm() / b.float().norm())
+    """Relative Frobenius error, computed in float64 (a float64 comparison
+    keeps its digits)."""
+    return float((a.double() - b.double()).norm() / b.double().norm())
 
 
 def event_times(fn, torch, reps: int = 20) -> list[float]:
@@ -256,8 +274,11 @@ def main() -> None:
     marks.append(time.perf_counter())
     curvature_phases(torch, dev, smi)
     marks.append(time.perf_counter())
+    solver_phases(torch, dev, smi)
+    marks.append(time.perf_counter())
     print("phase seconds: ResNet-18 kernel and KFAC {:.1f}, GPT kernels and KFAC {:.1f}, "
-          "curvature operators {:.1f}".format(*(b - a for a, b in zip(marks, marks[1:]))))
+          "curvature operators {:.1f}, solvers {:.1f}".format(
+              *(b - a for a, b in zip(marks, marks[1:]))))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -982,6 +1003,312 @@ def card_against_cpu(torch, dev) -> None:
                     raise RuntimeError(f"tiny MLP {label} disagrees with the dense oracle")
     print(f"  card vs CPU, float64, 5 operators x 2 models: worst rel err {worst:.2e} "
           f"(tol {CARD_CPU_TOL})")
+
+
+# ---------------------------------------------------------------------- #
+# the solvers and inverse operators (kernel 1 through KFAC's factor pass)
+# ---------------------------------------------------------------------- #
+SOLVER_DAMPING = 0.1  # lambda of the damped operators G + lambda I, H + lambda I
+SOLVER_ITERS = 20  # CG, MINRES, LSMR iterations, and LOBPCG's cap
+LANCZOS_ITERS = 16
+NEUMANN_TERMS = 10
+SOLVER_TOL = 1e-3  # CG: recomputed residual against the solver's own, relative
+MONOTONE_SLACK = 1e-4  # MINRES / LSMR norms may rise by this much (float32)
+ORTHO_TOL = 1e-4  # LOBPCG eigenvectors, max |U^T U - I|
+# LOBPCG's convergence test (JAX's) scales tol by 10 n: at n = 11M its
+# default (float32 eps) passes any residual below ~13 (|A u| + theta) and
+# stops after one iteration; 1e-12 asks for about 2e-4 relative
+LOBPCG_TOL = 1e-12
+SUBMATRIX_TOL = 1e-4  # a submatrix column against the full matvec, relative
+SUBMATRIX_SIZE = 1000
+
+
+def report(item: str, **fields) -> None:
+    """One JSON line of the solver phase."""
+    print(json.dumps({"solver_phase": item, **fields}))
+
+
+def timed(torch, fn):
+    """``(result, ms)``: host clock around ``fn`` ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def monotone(history, slack: float) -> bool:
+    """No entry above its predecessor by more than ``slack`` relative."""
+    return bool((history[1:] <= history[:-1] * (1 + slack)).all())
+
+
+def on_device(tree, dev) -> bool:
+    """Every tensor of a dict (or one tensor) on ``dev``'s kind of device:
+    no solver fell back to the CPU."""
+    leaves = tree.values() if isinstance(tree, dict) else [tree]
+    return all(t.device.type == dev.type for t in leaves)
+
+
+def finite_on_device(tree, dev) -> bool:
+    leaves = tree.values() if isinstance(tree, dict) else [tree]
+    return on_device(tree, dev) and all(bool(t.isfinite().all()) for t in leaves)
+
+
+def solver_phases(torch, dev, smi: str) -> None:
+    """CG (plain and KFAC-preconditioned), MINRES, LSMR, Neumann and LOBPCG
+    on ResNet-18 (B=512), Lanczos and a submatrix on GPT-2 small (B=4,
+    T=1024, einsum), and four solvers on the card against the CPU in
+    float64; float32, TF32 off, every gate fatal."""
+    from curvlinops_tpu_torch import (
+        CGInverseLinearOperator,
+        GGNLinearOperator,
+        HessianLinearOperator,
+        IdentityLinearOperator,
+        JacobianLinearOperator,
+        KFACLinearOperator,
+        LSMRInverseLinearOperator,
+        MINRESInverseLinearOperator,
+        NeumannInverseLinearOperator,
+        SubmatrixLinearOperator,
+        topk_eigenpairs,
+    )
+    from curvlinops_tpu_torch.kfac import kernels
+    from curvlinops_tpu_torch.models.gpt import GPTConfig, shakespeare_nanogpt
+    from curvlinops_tpu_torch.models.resnet import cifar10_resnet18
+    from curvlinops_tpu_torch.solvers.lanczos import (
+        flat_matvec,
+        lanczos_extreme_eigenvalues,
+        reorthogonalized_lanczos,
+        start_vector,
+    )
+    from curvlinops_tpu_torch.utils.flatten import tree_randn_like
+
+    lam = SOLVER_DAMPING
+    kernels.conv_input_covariance.launches = 0
+    problem = cifar10_resnet18(batch_size=BATCH, seed=0, device=dev)
+    # KFAC's parameters (conv and fc; BatchNorm fixed): the preconditioner's space
+    G = GGNLinearOperator(problem.model, problem.loss_fn, problem.kfac_params, problem.data,
+                          check_deterministic=False)
+    A = G + lam * IdentityLinearOperator(G.in_spec)
+    b = {n: g.detach() for n, g in G.gradient_and_loss()[0].items()}
+    nb = float(flat(b).norm())
+    print(f"solvers, ResNet-18/CIFAR-10, batch {BATCH}, GGN on KFAC's {G.shape[0]} parameters "
+          f"+ {lam} I, b = the gradient, float32, TF32 off [{smi}]")
+    time_matvec(torch, G, b, "G", smi)
+    matvec_ms = time_matvec(torch, A, b, "G + lambda I", smi)
+
+    # ---- 1. CG, plain and preconditioned by KFAC's damped inverse ------ #
+    kfac, build_ms = timed(torch, lambda: KFACLinearOperator(
+        problem.model, problem.loss_fn, problem.kfac_params, problem.data,
+        fisher_type="mc", check_deterministic=False))
+    P, inverse_ms = timed(torch, lambda: kfac.inverse(damping=lam))
+    precond_ms = time_ms(lambda: P @ b, torch, reps=10)
+    for label, pre in (("plain", None), ("KFAC-preconditioned", P)):
+        inv = CGInverseLinearOperator(A, maxiter=SOLVER_ITERS, tol=0.0, atol=0.0,
+                                      preconditioner=pre)
+        torch.cuda.reset_peak_memory_stats(dev)
+        x, solve_ms = timed(torch, lambda: inv @ b)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        info = inv.last_info
+        curve = (info["residual_history"][:, 0] / nb).tolist()
+        true_res = float(flat({n: b[n] - r for n, r in (A @ x).items()}).norm()) / nb
+        if not finite_on_device(x, dev):
+            raise RuntimeError(f"CG {label}: the solution is not finite or left the card")
+        if not abs(true_res - curve[-1]) <= SOLVER_TOL * curve[-1]:
+            raise RuntimeError(f"CG {label}: recomputed residual {true_res} against the "
+                               f"solver's {curve[-1]} (tol {SOLVER_TOL} relative)")
+        iters = info["iterations"]
+        report(f"CG {label}", iterations=iters, solve_ms=solve_ms, ms_per_iteration=solve_ms / iters,
+               matvec_ms=matvec_ms, preconditioner_ms=precond_ms if pre else None,
+               iterations_per_s=iters / solve_ms * 1e3, peak_gib=peak,
+               relative_residuals=curve, recomputed_final=true_res, card=smi)
+        device_profile(torch, f"one CG iteration ({label}, with the initial residual's matvec)",
+                       lambda: CGInverseLinearOperator(A, maxiter=1, tol=0.0, atol=0.0,
+                                                       preconditioner=pre) @ b)
+    launches = kernels.conv_input_covariance.launches
+    report("KFAC preconditioner", build_ms=build_ms, inverse_ms=inverse_ms,
+           apply_ms=precond_ms, conv_kernel_launches=launches)
+    if launches < 19:
+        raise RuntimeError(f"the preconditioner's factor pass launched the conv kernel {launches} "
+                           "times, expected >= 19")
+    del kfac, P, inv, x
+
+    # ---- 5. Neumann, scaled by 1 / (lambda_max(G) + lambda) ----------- #
+    (lo, hi), lanczos_ms = timed(torch, lambda: lanczos_extreme_eigenvalues(
+        G, num_iters=LANCZOS_ITERS, generator=torch.Generator().manual_seed(0)))
+    hi = float(hi)
+    neumann = NeumannInverseLinearOperator(A, num_terms=NEUMANN_TERMS, scale=1 / (hi + lam))
+    x, neumann_ms = timed(torch, lambda: neumann @ b)
+    if not finite_on_device(x, dev):
+        raise RuntimeError("Neumann: the result is not finite or left the card")
+    neumann.set_neumann_hyperparameters(scale=1e6 / (hi + lam))
+    try:
+        neumann @ b
+    except ValueError as err:
+        if "diverged" not in str(err):
+            raise
+        diverged = str(err)
+    else:
+        raise RuntimeError("Neumann at a scale of 1e6 / (lambda_max + lambda) did not raise")
+    res = float(flat({n: b[n] - r for n, r in (A @ x).items()}).norm()) / nb
+    report("Neumann", terms=NEUMANN_TERMS, lanczos_ms=lanczos_ms, lambda_min=float(lo),
+           lambda_max=hi, apply_ms=neumann_ms, ms_per_term=neumann_ms / NEUMANN_TERMS,
+           relative_residual=res, diverging_scale_raised=diverged, card=smi)
+
+    # ---- 6. LOBPCG, top 4 of the GGN ---------------------------------- #
+    widths = {w: torch.randn((G.shape[1], w), generator=torch.Generator().manual_seed(w)).to(dev)
+              for w in (4, 12)}
+    matmat_ms = {w: time_ms(lambda: G @ X, torch, reps=3) for w, X in widths.items()}
+    del widths
+    torch.cuda.reset_peak_memory_stats(dev)
+    (evals, U), lobpcg_ms = timed(torch, lambda: topk_eigenpairs(
+        G, k=4, maxiter=SOLVER_ITERS, tol=LOBPCG_TOL, generator=torch.Generator().manual_seed(1)))
+    evals_l = evals.tolist()
+    ortho = float((U.T @ U - torch.eye(4, device=dev)).abs().max())
+    GU = G @ U
+    rel_res = ((GU - U * evals).norm(dim=0) / evals.abs()).tolist()
+    report("LOBPCG", k=4, maxiter=SOLVER_ITERS, ms=lobpcg_ms, eigenvalues=evals_l,
+           orthonormality=ortho, relative_residuals=rel_res,
+           matmat_ms_4_columns=matmat_ms[4], matmat_ms_12_columns=matmat_ms[12],
+           peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card=smi)
+    if not (evals_l == sorted(evals_l, reverse=True) and min(evals_l) >= 0
+            and ortho <= ORTHO_TOL and on_device(U, dev)):
+        raise RuntimeError(f"LOBPCG: eigenvalues {evals_l}, orthonormality {ortho}")
+    del G, A, b, x, neumann, U, GU
+    torch.cuda.empty_cache()
+
+    # ---- 2. MINRES on the (indefinite) Hessian + lambda I -------------- #
+    H = HessianLinearOperator(problem.model, problem.loss_fn, problem.params, problem.data,
+                              check_deterministic=False)
+    AH = H + lam * IdentityLinearOperator(H.in_spec)
+    v = tree_randn_like(torch.Generator().manual_seed(2), H.in_spec)
+    hmatvec_ms = time_matvec(torch, AH, v, "Hessian + lambda I", smi)
+    inv = MINRESInverseLinearOperator(AH, maxiter=SOLVER_ITERS, tol=0.0, atol=0.0)
+    x, solve_ms = timed(torch, lambda: inv @ v)
+    hist = inv.last_info["residual_history"][:, 0]
+    report("MINRES", operator=f"Hessian on all {H.shape[0]} parameters + {lam} I",
+           iterations=inv.last_info["iterations"], solve_ms=solve_ms,
+           ms_per_iteration=solve_ms / inv.last_info["iterations"], matvec_ms=hmatvec_ms,
+           residuals=(hist / hist[0]).tolist(), card=smi)
+    if not (finite_on_device(x, dev) and monotone(hist, MONOTONE_SLACK)):
+        raise RuntimeError("MINRES: the residual norms increased, or the solution left the card")
+    del H, AH, inv, x
+
+    # ---- 3. LSMR on the Jacobian ---------------------------------------- #
+    J = JacobianLinearOperator(problem.model, problem.params, problem.data)
+    w = torch.randn(J.shape[0], generator=torch.Generator().manual_seed(3)).to(dev)
+    jmatvec_ms = time_ms(lambda: J @ v, torch, reps=10)
+    jtmatvec_ms = time_ms(lambda: J.T @ w, torch, reps=10)
+    inv = LSMRInverseLinearOperator(J, maxiter=SOLVER_ITERS, atol=0.0, btol=0.0)
+    x, solve_ms = timed(torch, lambda: inv @ w)
+    hist = inv.lsmr_info["normar_history"][:, 0]
+    # x and J^T r are flat [P] tensors (w is flat), J x the [N, C] predictions
+    true_normar = float((J.T @ ((J @ x).reshape(-1) - w)).norm())
+    report("LSMR", operator=f"Jacobian {J.shape[1]} -> {J.shape[0]}",
+           iterations=inv.lsmr_info["iterations"], solve_ms=solve_ms,
+           ms_per_iteration=solve_ms / inv.lsmr_info["iterations"],
+           J_matvec_ms=jmatvec_ms, JT_matvec_ms=jtmatvec_ms, normar=(hist / hist[0]).tolist(),
+           recomputed_final_normar=true_normar, estimated_final_normar=float(hist[-1]), card=smi)
+    if not (finite_on_device(x, dev) and monotone(hist, MONOTONE_SLACK)):
+        raise RuntimeError("LSMR: ||J^T (J x - b)|| increased, or the solution left the card")
+    del problem, J, inv, x
+    torch.cuda.empty_cache()
+
+    # ---- 4. Lanczos and 7. a submatrix on the GPT-2 small GGN ---------- #
+    config = GPT_CONFIG or GPTConfig()
+    gpt = shakespeare_nanogpt(GPT_BATCH, config, seed=0, device=dev, attention_impl="einsum")
+    GG = GGNLinearOperator(gpt.model, gpt.loss_fn, gpt.params, gpt.data, check_deterministic=False)
+    torch.cuda.reset_peak_memory_stats(dev)
+    v0 = start_vector(GG, torch.Generator().manual_seed(4), (GG.shape[1],))
+    (V, Tm), lanczos_ms = timed(torch, lambda: reorthogonalized_lanczos(
+        GG, num_iters=LANCZOS_ITERS, v0=v0))
+    theta, S = torch.linalg.eigh(Tm)
+    y = V.T @ S[:, -1]
+    ritz_res = float((flat_matvec(GG)(y) - theta[-1] * y).norm() / theta[-1].abs())
+    rayleigh = float(Tm[0, 0])
+    report("Lanczos", operator=f"GPT-2 small GGN, {GG.shape[0]} parameters",
+           iterations=LANCZOS_ITERS, ms=lanczos_ms, ms_per_iteration=lanczos_ms / LANCZOS_ITERS,
+           ritz_min=float(theta[0]), ritz_max=float(theta[-1]), start_rayleigh=rayleigh,
+           top_ritz_relative_residual=ritz_res,
+           peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card=smi)
+    if not (float(theta[-1]) >= rayleigh and on_device(V, dev)):
+        raise RuntimeError(f"Lanczos: top Ritz value {float(theta[-1])} below the start "
+                           f"vector's Rayleigh quotient {rayleigh}")
+    del V, y
+
+    # SUBMATRIX_SIZE indices among block h0's parameters, which are
+    # contiguous in the flat order
+    offset, ranges = 0, []
+    for name, spec in GG.in_spec.items():
+        if name.startswith("h0."):
+            ranges.append(offset)
+        offset += math.prod(spec.shape)
+        if name.startswith("h0."):
+            ranges.append(offset)
+    lo_i, hi_i = ranges[0], ranges[-1]
+    idx = torch.randperm(hi_i - lo_i, generator=torch.Generator().manual_seed(5))[:SUBMATRIX_SIZE]
+    idx = (idx.sort().values + lo_i).tolist()
+    sub = SubmatrixLinearOperator(GG, idx, idx)
+    j = 7
+    e = torch.zeros(SUBMATRIX_SIZE, device=dev)
+    e[j] = 1.0
+    col, sub_ms = timed(torch, lambda: sub @ e)
+    full = torch.zeros(GG.shape[1], device=dev)
+    full[idx[j]] = 1.0
+    expected = (GG @ full)[idx]
+    err = rel_err(col, expected)
+    report("submatrix", operator=f"GPT-2 small GGN, {SUBMATRIX_SIZE} indices of block h0",
+           column_ms=sub_ms, relative_error=err, card=smi)
+    if not (err <= SUBMATRIX_TOL and on_device(col, dev)):
+        raise RuntimeError(f"submatrix column against the full matvec: {err} (tol {SUBMATRIX_TOL})")
+    del gpt, GG, sub
+    torch.cuda.empty_cache()
+
+    # ---- 8. the card against the CPU, float64, tiny MLP ---------------- #
+    worst = solvers_card_against_cpu(torch, dev)
+    report("card vs CPU", problem="tiny MLP, float64", solvers=["CG", "MINRES", "LSMR", "Lanczos"],
+           worst_relative_error=worst, tol=CARD_CPU_TOL)
+
+
+def solvers_card_against_cpu(torch, dev) -> float:
+    """CG, MINRES (damped GGN), LSMR (Jacobian) and fast Lanczos on the tiny
+    MLP in float64, 8 steps from the same start columns on the card and on
+    the CPU; returns the worst relative error (fatal above 1e-10)."""
+    from curvlinops_tpu_torch import (
+        CGInverseLinearOperator,
+        GGNLinearOperator,
+        IdentityLinearOperator,
+        JacobianLinearOperator,
+        LSMRInverseLinearOperator,
+        MINRESInverseLinearOperator,
+    )
+    from curvlinops_tpu_torch.models.mlp import tiny_mlp_problem
+    from curvlinops_tpu_torch.solvers.lanczos import fast_lanczos
+
+    def run(device, V):
+        p = tiny_mlp_problem(device=device)
+        G = GGNLinearOperator(p.model, p.loss_fn, p.params, p.data)
+        A = G + 0.1 * IdentityLinearOperator(G.in_spec)
+        J = JacobianLinearOperator(p.model, p.params, p.data)
+        evals, evecs = fast_lanczos(A, 8, v0=V[:, 0])
+        return {
+            "CG": CGInverseLinearOperator(A, maxiter=8, tol=0.0, atol=0.0) @ V,
+            "MINRES": MINRESInverseLinearOperator(A, maxiter=8, tol=0.0, atol=0.0) @ V,
+            "LSMR": LSMRInverseLinearOperator(J, maxiter=8, atol=0.0, btol=0.0) @ V[: J.shape[0]],
+            "Lanczos": torch.cat([evals, evecs.abs().reshape(-1)]),
+        }
+
+    V = torch.randn((81, 2), generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+    cpu, card = run("cpu", V), run(dev, V.to(dev))
+    worst = 0.0
+    for name, expected in cpu.items():
+        if not on_device(card[name], dev):
+            raise RuntimeError(f"{name} left the card")
+        err = rel_err(card[name].cpu(), expected)
+        worst = max(worst, err)
+        if not err <= CARD_CPU_TOL:
+            raise RuntimeError(f"{name}: card vs CPU rel err {err} (tol {CARD_CPU_TOL})")
+    return worst
 
 
 if __name__ == "__main__":

@@ -4,9 +4,12 @@ The package mirrors ``curvlinops_tpu``'s module paths. It imports ``torch``
 and never ``jax``; the JAX package stays the reference, and the port's
 tests hold each module against its JAX counterpart on the CPU. The slices
 ported so far run KFAC on ResNet-18/CIFAR-10 and on nanoGPT (GPT-2 small),
-and the empirical-risk curvature operators: losses and loss-Hessian
-structure, the ResNet, GPT and MLP models, the operator core (base,
-block-diagonal, eigh, Kronecker), the KFAC collector, factor computation,
+the empirical-risk curvature operators, and the structured operators and
+the on-device solvers: losses and loss-Hessian structure, the ResNet, GPT
+and MLP models, the operator core (base with ``to_scipy``, dense, diagonal,
+block-diagonal, eigh, Kronecker and embedding blocks, stacked, submatrix),
+the solvers (CG, MINRES, LSMR, Lanczos, LOBPCG) and the inverse operators
+built on them (CG, MINRES, LSMR, Neumann), the KFAC collector, factor computation,
 damped inverses and matvec, ``risk.py``'s ``EmpiricalRiskOperator`` and
 the GGN/MC-Fisher, Hessian, empirical-Fisher and (transposed) Jacobian
 operators built on it, and the dense oracles of :mod:`examples`. The TPU
@@ -37,9 +40,31 @@ from curvlinops_tpu_torch.ops.base import (
     SumLinearOperator,
 )
 from curvlinops_tpu_torch.ops.blockdiag import BlockDiagonalLinearOperator
+from curvlinops_tpu_torch.ops.dense import (
+    IdentityLinearOperator,
+    MatrixLinearOperator,
+    OuterProductLinearOperator,
+)
+from curvlinops_tpu_torch.ops.diagonal import DiagonalLinearOperator
 from curvlinops_tpu_torch.ops.eigh import EighDecomposedLinearOperator
+from curvlinops_tpu_torch.ops.inverse import (
+    CGInverseLinearOperator,
+    LSMRInverseLinearOperator,
+    MINRESInverseLinearOperator,
+    NeumannInverseLinearOperator,
+)
 from curvlinops_tpu_torch.ops.kronecker import KroneckerProductLinearOperator
+from curvlinops_tpu_torch.ops.submatrix import SubmatrixLinearOperator
 from curvlinops_tpu_torch.risk import CurvatureLinearOperator, EmpiricalRiskOperator
+from curvlinops_tpu_torch.solvers.eigsh import topk_eigenpairs
+from curvlinops_tpu_torch.solvers.lanczos import (
+    LanczosApproximateLogSpectrumCached,
+    LanczosApproximateSpectrumCached,
+    lanczos_approximate_log_spectrum,
+    lanczos_approximate_spectrum,
+    lanczos_eigsh,
+)
+from curvlinops_tpu_torch.utils.misc import make_functional_call
 
 __all__ = [
     "examples",
@@ -61,9 +86,27 @@ __all__ = [
     "SumLinearOperator",
     "ScaledLinearOperator",
     "ChainLinearOperator",
+    "MatrixLinearOperator",
+    "IdentityLinearOperator",
+    "OuterProductLinearOperator",
+    "DiagonalLinearOperator",
     "BlockDiagonalLinearOperator",
-    "EighDecomposedLinearOperator",
     "KroneckerProductLinearOperator",
+    "EighDecomposedLinearOperator",
+    "SubmatrixLinearOperator",
+    "CGInverseLinearOperator",
+    "LSMRInverseLinearOperator",
+    "MINRESInverseLinearOperator",
+    "NeumannInverseLinearOperator",
+    # spectral properties
+    "lanczos_approximate_spectrum",
+    "lanczos_approximate_log_spectrum",
+    "lanczos_eigsh",
+    "LanczosApproximateSpectrumCached",
+    "LanczosApproximateLogSpectrumCached",
+    "topk_eigenpairs",
+    # adapters
+    "make_functional_call",
     "GPTConfig",
     "shakespeare_nanogpt",
     "cifar10_resnet18",

@@ -47,6 +47,7 @@ class JacobianLinearOperator(EmpiricalRiskOperator):
         out_spec = _prediction_spec(model, params, data, num_data)
         super().__init__(model, None, params, data, num_data=num_data, out_spec=out_spec, **kw)
 
+    @torch.no_grad()  # as EmpiricalRiskOperator._matmat: no graph to the module's own parameters
     def _matmat(self, M: Any) -> Any:
         model_fn, params = self._model_fn, self._params
         blocks = []
@@ -82,6 +83,7 @@ class TransposedJacobianLinearOperator(EmpiricalRiskOperator):
             num_data=num_data, in_spec=in_spec, out_spec=spec_of(params), **kw,
         )
 
+    @torch.no_grad()  # as EmpiricalRiskOperator._matmat
     def _matmat(self, M: Any) -> Any:
         out, offset = None, 0
         for X, _ in self._loop_over_data(desc="jacobian_t"):

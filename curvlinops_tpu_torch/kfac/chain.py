@@ -5,7 +5,8 @@ Kronecker blocks. :class:`KroneckerChainOperator` keeps the introspectable
 chain (canonical converters and one operator per block) and applies it
 directly block by block; :func:`grouped_kron_inverse` damps and inverts
 every factor with one batched Cholesky per distinct factor shape and reads
-its two failure flags back to the host once.
+its two failure flags back to the host once. :func:`stacked_kron_inverse`
+damps and inverts the stacked blocks of ``ops/stacked.py``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from curvlinops_tpu_torch.ops.eigh import EighDecomposedLinearOperator
 from curvlinops_tpu_torch.ops.kronecker import (
     KroneckerProductLinearOperator,
     cholesky_failed,
+    damped_cholesky_inverse,
     kron_matmat,
 )
 from curvlinops_tpu_torch.utils.flatten import spec_of, zeros_like_spec
@@ -107,6 +109,48 @@ def grouped_kron_inverse(
     if flags[0]:
         return None
     return {gi: [inv[(gi, fi)] for fi in range(len(fs))] for gi, (_, fs) in blocks.items()}
+
+
+def stacked_kron_inverse(
+    factors: list[torch.Tensor],
+    damping: float,
+    use_heuristic_damping: bool,
+    min_damping: float,
+    retry_double_precision: bool,
+) -> list[torch.Tensor]:
+    """Damped inverse of a stack of Kronecker blocks, batched over the stack.
+
+    Plain and Martens-Grosse heuristic damping as in
+    :meth:`~curvlinops_tpu_torch.ops.kronecker.KroneckerProductLinearOperator.inverse`,
+    with ``pi`` computed per stack slice, and ``pi = 1`` for a slice whose
+    factor has zero trace. (The JAX package's ``kfac/chain.py:220`` divides
+    by the zero trace there and returns an infinite ``pi``.)
+
+    Raises:
+        ValueError: For heuristic damping with more than two factors.
+        RuntimeError: On a negative mean eigenvalue under heuristic damping.
+    """
+    L, kw = factors[0].shape[0], dict(dtype=factors[0].dtype, device=factors[0].device)
+    if use_heuristic_damping and len(factors) > 2:
+        raise ValueError(f"Heuristic damping supports at most two factors, got {len(factors)}.")
+    if use_heuristic_damping and len(factors) == 2:
+        m1, m2 = (S.diagonal(dim1=-2, dim2=-1).mean(-1) for S in factors)
+        if bool(((m1 < 0) | (m2 < 0)).any()):
+            raise RuntimeError("Negative mean eigenvalue detected.")
+        ok = (m1 > 0) & (m2 > 0)
+        pi = torch.where(ok, torch.sqrt(m2 / torch.where(ok, m1, 1.0)), 1.0)
+        sqrt_damping = math.sqrt(damping)
+        dampings = (
+            torch.clamp(sqrt_damping / pi, min=min_damping),
+            torch.clamp(sqrt_damping * pi, min=min_damping),
+        )
+    else:
+        d = max(damping, min_damping) if use_heuristic_damping else damping
+        dampings = tuple(torch.full((L,), d, **kw) for _ in factors)
+    return [
+        damped_cholesky_inverse(S, d[:, None, None], retry_double_precision)
+        for S, d in zip(factors, dampings)
+    ]
 
 
 class KroneckerChainOperator(ChainLinearOperator):

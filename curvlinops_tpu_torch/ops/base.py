@@ -243,10 +243,55 @@ class LinearOperator:
         return self.adjoint()
 
     # ---- materialization ---------------------------------------------- #
-    def todense(self) -> torch.Tensor:
-        """Materialize as a dense ``[out_dim, in_dim]`` tensor (small operators)."""
-        eye = torch.eye(self.shape[1], dtype=self.dtype, device=self.device)
-        return self @ eye
+    def todense(self, col_chunk: int | None = None) -> torch.Tensor:
+        """Materialize as a dense ``[out_dim, in_dim]`` tensor (small operators).
+
+        The identity's columns are mapped ``col_chunk`` at a time (all at
+        once when ``None``), so a large operator never maps every column in
+        one matmat.
+        """
+        n = self.shape[1]
+        chunk = n if col_chunk is None else col_chunk
+        blocks = []
+        for start in range(0, n, chunk):
+            stop = min(start + chunk, n)
+            eye = torch.zeros((n, stop - start), dtype=self.dtype, device=self.device)
+            eye[torch.arange(start, stop), torch.arange(stop - start)] = 1
+            blocks.append(self @ eye)
+        return torch.cat(blocks, dim=1)
+
+    def to_scipy(self, dtype=None):
+        """Export as a ``scipy.sparse.linalg.LinearOperator``.
+
+        Each product copies its numpy input to the operator's device and the
+        result back to the host: an escape hatch for SciPy's solvers, not a
+        path for timed work (the port's solvers run on the device,
+        :mod:`curvlinops_tpu_torch.solvers`).
+        """
+        from scipy.sparse.linalg import LinearOperator as ScipyLinearOperator
+
+        adj = self.adjoint()
+        if dtype is not None:
+            np_dtype = np.dtype(dtype)
+        elif self.dtype == torch.bfloat16:  # numpy has no bfloat16
+            np_dtype = np.dtype(np.float32)
+        else:
+            np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
+
+        def matmat(X: np.ndarray) -> np.ndarray:
+            return np.asarray(self @ np.asarray(X), dtype=np_dtype)
+
+        def rmatmat(X: np.ndarray) -> np.ndarray:
+            return np.asarray(adj @ np.asarray(X), dtype=np_dtype)
+
+        return ScipyLinearOperator(
+            self.shape,
+            matvec=lambda v: matmat(v.reshape(-1, 1)).ravel(),
+            rmatvec=lambda v: rmatmat(v.reshape(-1, 1)).ravel(),
+            matmat=matmat,
+            rmatmat=rmatmat,
+            dtype=np_dtype,
+        )
 
     def matvec_tree(self, v: Any) -> Any:
         """Apply to a tree vector (no column axis), returning a tree."""
@@ -404,6 +449,17 @@ class ChainLinearOperator(LinearOperator):
 
     def __getitem__(self, idx: int) -> LinearOperator:  # noqa: D105
         return self.ops[idx]
+
+    def __setitem__(self, idx: int, op: LinearOperator) -> None:
+        """Replace a chain element of the same shape and spaces."""
+        old = self.ops[idx]
+        if op.shape != old.shape:
+            raise ValueError(
+                f"Replacement operator has shape {op.shape}, expected {old.shape}."
+            )
+        _check_same_space(op.in_spec, old.in_spec, "chain[i] = op (input)")
+        _check_same_space(op.out_spec, old.out_spec, "chain[i] = op (output)")
+        self.ops[idx] = op
 
     def _matmat(self, M: Any) -> Any:
         for op in reversed(self.ops):

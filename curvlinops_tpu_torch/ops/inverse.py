@@ -1,0 +1,249 @@
+"""Inverse linear operators: CG, MINRES, LSMR and truncated Neumann series.
+
+PyTorch counterpart of ``curvlinops_tpu/ops/inverse.py``. The iterations
+run on the device (:mod:`curvlinops_tpu_torch.solvers`), each as a Python
+loop that applies the operator's ``_matmat`` once per step, where the JAX
+package compiles the whole solve into one XLA program. The Krylov loops
+read one host scalar per iteration (their stopping test); the Neumann
+series reads none until its end, where it checks its divergence flag once.
+``set_*_hyperparameters`` changes the next solve; there is no compiled
+program to drop.
+
+Example:
+    >>> import torch
+    >>> from curvlinops_tpu_torch.ops.dense import MatrixLinearOperator
+    >>> from curvlinops_tpu_torch.ops.inverse import CGInverseLinearOperator
+    >>> M = torch.randn(6, 6, generator=torch.Generator().manual_seed(0)) / 6
+    >>> A = MatrixLinearOperator(M @ M.T + torch.eye(6))  # SPD
+    >>> v = torch.ones(6)
+    >>> x = CGInverseLinearOperator(A, maxiter=50, tol=1e-9) @ v
+    >>> bool(torch.allclose(A @ x, v, atol=1e-4))
+    True
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from curvlinops_tpu_torch.ops.base import LinearOperator
+from curvlinops_tpu_torch.solvers.cg import batched_cg, flatten_columns, on_flat
+from curvlinops_tpu_torch.solvers.lsmr import batched_lsmr
+from curvlinops_tpu_torch.solvers.minres import batched_minres
+
+
+def _set(op: LinearOperator, names: tuple, kwargs: dict, solver: str) -> None:
+    """Set the named hyperparameters ``op._<name>``; refuse unknown names."""
+    for name in names:
+        if name in kwargs:
+            setattr(op, f"_{name}", kwargs.pop(name))
+    if kwargs:
+        raise ValueError(f"Unknown {solver} hyperparameters: {sorted(kwargs)}.")
+
+
+def _require_square(A: LinearOperator) -> None:
+    if A.shape[0] != A.shape[1]:
+        raise ValueError(f"Operator must be square, got {A.shape}.")
+
+
+class CGInverseLinearOperator(LinearOperator):
+    """``A^{-1}`` by batched (preconditioned) conjugate gradients."""
+
+    def __init__(
+        self,
+        A: LinearOperator,
+        *,
+        maxiter: int = 100,
+        tol: float = 1e-5,
+        atol: float = 1e-8,
+        preconditioner: LinearOperator | None = None,
+    ):
+        _require_square(A)
+        super().__init__(A.in_spec, A.out_spec)
+        self._A = A
+        self._maxiter, self._tol, self._atol = maxiter, tol, atol
+        self._preconditioner = preconditioner
+        self._last_info: dict | None = None
+        self.SELF_ADJOINT = A.SELF_ADJOINT
+
+    @property
+    def last_info(self) -> dict | None:
+        """Iteration counts and residual norms of the last solve."""
+        return self._last_info
+
+    def set_cg_hyperparameters(self, **kwargs) -> None:
+        """Update the solver's ``maxiter``, ``tol`` and ``atol``."""
+        _set(self, ("maxiter", "tol", "atol"), kwargs, "CG")
+
+    def _matmat(self, M: Any) -> Any:
+        P = self._preconditioner
+        X, self._last_info = batched_cg(
+            self._A._matmat, M, maxiter=self._maxiter, tol=self._tol, atol=self._atol,
+            preconditioner=P._matmat if P is not None else None,
+        )
+        return X
+
+    def _adjoint(self) -> "CGInverseLinearOperator":
+        return CGInverseLinearOperator(
+            self._A.adjoint(), maxiter=self._maxiter, tol=self._tol, atol=self._atol,
+            preconditioner=self._preconditioner,
+        )
+
+
+class MINRESInverseLinearOperator(LinearOperator):
+    """``A^{-1}`` for a symmetric, possibly indefinite ``A`` by batched MINRES.
+
+    Symmetry is taken from ``A.SELF_ADJOINT`` (the curvature operators set
+    it; set it on a symmetric :class:`~curvlinops_tpu_torch.ops.dense.
+    MatrixLinearOperator` yourself).
+    """
+
+    SELF_ADJOINT = True
+
+    def __init__(
+        self,
+        A: LinearOperator,
+        *,
+        maxiter: int = 100,
+        tol: float = 1e-5,
+        atol: float = 1e-8,
+    ):
+        _require_square(A)
+        if not A.SELF_ADJOINT:
+            raise ValueError("MINRES requires a symmetric operator.")
+        super().__init__(A.in_spec, A.out_spec)
+        self._A = A
+        self._maxiter, self._tol, self._atol = maxiter, tol, atol
+        self._last_info: dict | None = None
+
+    @property
+    def last_info(self) -> dict | None:
+        """Iteration counts and residual-norm estimates of the last solve."""
+        return self._last_info
+
+    def set_minres_hyperparameters(self, **kwargs) -> None:
+        """Update the solver's ``maxiter``, ``tol`` and ``atol``."""
+        _set(self, ("maxiter", "tol", "atol"), kwargs, "MINRES")
+
+    def _matmat(self, M: Any) -> Any:
+        X, self._last_info = batched_minres(
+            self._A._matmat, M, maxiter=self._maxiter, tol=self._tol, atol=self._atol
+        )
+        return X
+
+
+class LSMRInverseLinearOperator(LinearOperator):
+    """Least-squares (pseudo-)inverse by batched LSMR: maps the output space
+    of ``A`` back to its input space.
+
+    Its adjoint is the LSMR inverse of ``A^T`` with the same damping, since
+    ``A (A^T A + d^2 I)^{-1} = (A A^T + d^2 I)^{-1} A``.
+    """
+
+    def __init__(
+        self,
+        A: LinearOperator,
+        *,
+        damp: float = 0.0,
+        maxiter: int = 100,
+        atol: float = 1e-6,
+        btol: float = 1e-6,
+    ):
+        super().__init__(A.out_spec, A.in_spec)
+        self._A, self._A_adj = A, A.adjoint()
+        self._damp, self._maxiter, self._atol, self._btol = damp, maxiter, atol, btol
+        self._lsmr_info: dict | None = None
+
+    @property
+    def lsmr_info(self) -> dict | None:
+        """Iteration count and ``normr`` / ``normar`` of the last solve."""
+        return self._lsmr_info
+
+    def set_lsmr_hyperparameters(self, **kwargs) -> None:
+        """Update the solver's ``damp``, ``maxiter``, ``atol`` and ``btol``."""
+        _set(self, ("damp", "maxiter", "atol", "btol"), kwargs, "LSMR")
+
+    def _matmat(self, M: Any) -> Any:
+        X, self._lsmr_info = batched_lsmr(
+            self._A._matmat, self._A_adj._matmat, M, damp=self._damp,
+            maxiter=self._maxiter, atol=self._atol, btol=self._btol,
+        )
+        return X
+
+    def _adjoint(self) -> "LSMRInverseLinearOperator":
+        return LSMRInverseLinearOperator(
+            self._A_adj, damp=self._damp, maxiter=self._maxiter, atol=self._atol,
+            btol=self._btol,
+        )
+
+
+class NeumannInverseLinearOperator(LinearOperator):
+    r"""Truncated, rescaled Neumann-series inverse.
+
+    ``A^{-1} ~= scale * sum_{k<=K} (I - scale * A)^k``, with an optional
+    left preconditioner ``P`` (Wang et al., NeurIPS 2025):
+    ``A^{-1} ~= scale * sum_{k<=K} (I - scale P A)^k P``.
+
+    A diverging series produces NaNs: a device-side flag records the first
+    term with one, and the apply raises ``ValueError`` after the loop (the
+    loop itself reads nothing to the host).
+    """
+
+    def __init__(
+        self,
+        A: LinearOperator,
+        *,
+        num_terms: int = 100,
+        scale: float = 1.0,
+        check_nan: bool = True,
+        preconditioner: LinearOperator | None = None,
+    ):
+        _require_square(A)
+        super().__init__(A.in_spec, A.out_spec)
+        self._A = A
+        self._num_terms, self._scale = num_terms, scale
+        self._check_nan = check_nan
+        self._preconditioner = preconditioner
+        self.SELF_ADJOINT = A.SELF_ADJOINT and preconditioner is None
+
+    def set_neumann_hyperparameters(
+        self, num_terms: int | None = None, scale: float | None = None
+    ) -> None:
+        """Update the truncation length and the rescaling."""
+        if num_terms is not None:
+            self._num_terms = num_terms
+        if scale is not None:
+            self._scale = scale
+
+    def _matmat(self, M: Any) -> Any:
+        m, ravel, unravel = flatten_columns(M)
+        A = on_flat(self._A._matmat, ravel, unravel)
+        P = self._preconditioner
+        apply_P = on_flat(P._matmat, ravel, unravel) if P is not None else (lambda V: V)
+        scale = self._scale
+
+        term = result = apply_P(m)  # the k = 0 term, P M
+        flag = torch.zeros((), dtype=torch.bool, device=m.device)
+        first_bad = torch.full((), -1, dtype=torch.int64, device=m.device)
+        for k in range(1, self._num_terms + 1):
+            term = term - scale * apply_P(A(term))
+            if self._check_nan:
+                isnan = torch.isnan(term).any()
+                first_bad = torch.where(~flag & isnan, k, first_bad)
+                flag = flag | isnan
+            result = result + term
+        if self._check_nan and bool(flag):  # the one host read, after the loop
+            raise ValueError(
+                f"Neumann series diverged (NaN at term {int(first_bad)}); "
+                "decrease `scale` or the spectral radius of I - scale*A."
+            )
+        return unravel(scale * result)
+
+    def _adjoint(self) -> LinearOperator:
+        P = self._preconditioner
+        return NeumannInverseLinearOperator(
+            self._A.adjoint(), num_terms=self._num_terms, scale=self._scale,
+            check_nan=self._check_nan,
+            preconditioner=P.adjoint() if P is not None else None,
+        )

@@ -6,7 +6,9 @@ factor per axis, never forming the Kronecker product. Inversion offers three
 damping modes: per-factor damping, the Martens-Grosse heuristic split
 (arXiv:1503.05671 §6.3) with the zero-trace guard, and exact damping through
 per-factor eigendecompositions. The damped Cholesky inverse retries in
-float64 when the factorization fails in the working precision.
+float64 when the factorization fails in the working precision. The
+embedding blocks (``G (x) diag(d)`` and its eigendecomposed form) keep the
+one-hot input covariance as a vector.
 """
 
 from __future__ import annotations
@@ -40,9 +42,12 @@ def cholesky_failed(L: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
 
 
 def damped_cholesky_inverse(
-    A: torch.Tensor, damping: float, retry_double_precision: bool = True
+    A: torch.Tensor, damping: float | torch.Tensor, retry_double_precision: bool = True
 ) -> torch.Tensor:
     """Invert ``A + damping I`` via Cholesky, retrying in float64 on failure.
+
+    ``A`` may be a stack ``[L, n, n]`` with ``damping`` a ``[L, 1, 1]``
+    tensor in ``A``'s dtype (one damping per slice).
 
     Raises:
         RuntimeError: If the factorization fails even in float64 (or the
@@ -184,3 +189,154 @@ class KroneckerProductLinearOperator(LinearOperator):
                 for S, d in zip(self._factors, dampings)
             ]
         )
+
+
+class EmbeddingKroneckerOperator(LinearOperator):
+    """``G (x) diag(d)``: the KFAC block of an embedding layer.
+
+    One-hot layer inputs make the input covariance exactly diagonal (token
+    counts), so the right Kronecker factor is a length-``V`` vector and the
+    ``[V, V]`` matrix is never formed. Damping mirrors
+    :class:`KroneckerProductLinearOperator` with the diagonal as the second
+    factor.
+    """
+
+    def __init__(self, G: torch.Tensor, d: torch.Tensor):
+        self._G, self._d = torch.as_tensor(G), torch.as_tensor(d)
+        if self._G.ndim != 2 or self._d.ndim != 1:
+            raise ValueError("Need a [C, C] matrix and a [V] diagonal vector.")
+        V = self._d.shape[0]
+        dtype, device = torch.promote_types(self._G.dtype, self._d.dtype), self._G.device
+        super().__init__(
+            TensorSpec((self._G.shape[1] * V,), dtype, device),
+            TensorSpec((self._G.shape[0] * V,), dtype, device),
+        )
+
+    @property
+    def factors(self) -> list[torch.Tensor]:
+        """``[G, d]``: the dense left factor and the diagonal vector."""
+        return [self._G, self._d]
+
+    def _matmat(self, M: torch.Tensor) -> torch.Tensor:
+        K = M.shape[-1]
+        X = M.reshape(self._G.shape[1], self._d.shape[0], K)
+        out = torch.einsum("ab,bvk->avk", self._G, X) * self._d[None, :, None]
+        return out.reshape(-1, K)
+
+    def _adjoint(self) -> "EmbeddingKroneckerOperator":
+        return EmbeddingKroneckerOperator(self._G.conj().T, self._d.conj())
+
+    def _ensure_square(self):
+        if self._G.shape[0] != self._G.shape[1]:
+            raise ValueError("Operation requires a square left factor.")
+
+    def trace(self) -> torch.Tensor:
+        """``tr(G) * sum(d)``."""
+        self._ensure_square()
+        return torch.trace(self._G) * self._d.sum()
+
+    def det(self) -> torch.Tensor:
+        """``det(G)^V * prod(d)^C``."""
+        self._ensure_square()
+        V, C = self._d.shape[0], self._G.shape[0]
+        return torch.linalg.det(self._G) ** V * self._d.prod() ** C
+
+    def logdet(self) -> torch.Tensor:
+        """``V logdet(G) + C sum(log d)``; NaN for a non-positive ``det(G)``."""
+        self._ensure_square()
+        V, C = self._d.shape[0], self._G.shape[0]
+        sign, ld = torch.linalg.slogdet(self._G)
+        return V * torch.where(sign > 0, ld, torch.nan) + C * self._d.log().sum()
+
+    def frobenius_norm(self) -> torch.Tensor:
+        """``||G||_F * ||d||_2``."""
+        return torch.linalg.matrix_norm(self._G) * torch.linalg.vector_norm(self._d)
+
+    def inverse(
+        self,
+        damping: float = 0.0,
+        use_heuristic_damping: bool = False,
+        min_damping: float = 1e-8,
+        use_exact_damping: bool = False,
+        retry_double_precision: bool = True,
+    ) -> LinearOperator:
+        """Damped inverse with plain, Martens-Grosse heuristic or exact damping.
+
+        The heuristic split takes :func:`heuristic_pi`'s zero-trace guard: an
+        all-zero ``G`` or ``d`` gives ``pi = 1`` and a finite inverse, where
+        the JAX package's ``ops/kronecker.py:329`` divides by the zero trace.
+
+        Raises:
+            ValueError: If both damping strategies are requested.
+            RuntimeError: On a negative mean eigenvalue under heuristic
+                damping.
+        """
+        self._ensure_square()
+        if use_heuristic_damping and use_exact_damping:
+            raise ValueError("Choose either heuristic or exact damping, not both.")
+        if use_exact_damping:
+            lam_G, Q_G = torch.linalg.eigh(self._G)
+            lam = lam_G[:, None] * self._d[None, :]
+            return EmbeddingEighOperator(1.0 / (lam + damping), Q_G)
+        if use_heuristic_damping:
+            mean1, mean2 = float(torch.diagonal(self._G).mean()), float(self._d.mean())
+            if mean1 < 0 or mean2 < 0:
+                raise RuntimeError("Negative mean eigenvalue detected.")
+            pi = heuristic_pi(mean1, mean2)
+            sqrt_damping = math.sqrt(damping)
+            d1 = max(sqrt_damping / pi, min_damping)
+            d2 = max(sqrt_damping * pi, min_damping)
+        else:
+            d1 = d2 = damping
+        return EmbeddingKroneckerOperator(
+            damped_cholesky_inverse(self._G, d1, retry_double_precision),
+            1.0 / (self._d + d2),
+        )
+
+
+class EmbeddingEighOperator(LinearOperator):
+    """``(Q (x) I) diag(lam) (Q (x) I)^T``: an eigendecomposed embedding block.
+
+    The diagonal right factor's eigenbasis is the identity, so only the
+    ``[C, C]`` left eigenvectors are stored; the eigenvalues are the full
+    ``[C, V]`` grid ``lam_G (x) d``.
+    """
+
+    SELF_ADJOINT = True
+
+    def __init__(self, eigenvalues: torch.Tensor, Q: torch.Tensor):
+        self._lam, self._Q = torch.as_tensor(eigenvalues), torch.as_tensor(Q)  # [C, V], [C, C]
+        if self._lam.ndim != 2 or self._Q.ndim != 2:
+            raise ValueError("Need [C, V] eigenvalues and [C, C] eigenvectors.")
+        super().__init__(TensorSpec((self._lam.numel(),), self._lam.dtype, self._lam.device))
+
+    @property
+    def eigenvalues(self) -> torch.Tensor:
+        """The ``[C, V]`` eigenvalue grid."""
+        return self._lam
+
+    def _matmat(self, M: torch.Tensor) -> torch.Tensor:
+        K = M.shape[-1]
+        X = M.reshape(*self._lam.shape, K)
+        W = torch.einsum("ba,bvk->avk", self._Q, X) * self._lam[:, :, None]  # diag(lam) Q^T X
+        return torch.einsum("ab,bvk->avk", self._Q, W).reshape(-1, K)
+
+    def trace(self) -> torch.Tensor:
+        """Sum of eigenvalues."""
+        return self._lam.sum()
+
+    def det(self) -> torch.Tensor:
+        """Product of eigenvalues."""
+        return self._lam.prod()
+
+    def logdet(self) -> torch.Tensor:
+        """Sum of log eigenvalues."""
+        return self._lam.log().sum()
+
+    def frobenius_norm(self) -> torch.Tensor:
+        """L2 norm of the eigenvalues."""
+        return torch.linalg.vector_norm(self._lam)
+
+    def inverse(self, damping: float = 0.0) -> "EmbeddingEighOperator":
+        """``1/(lam + delta)`` in the same basis."""
+        return EmbeddingEighOperator(1.0 / (self._lam + damping), self._Q)

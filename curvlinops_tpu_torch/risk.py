@@ -236,7 +236,12 @@ class EmpiricalRiskOperator(LinearOperator):
         ``M`` carries a trailing column axis on every leaf."""
         raise NotImplementedError
 
+    @torch.no_grad()
     def _matmat(self, M: Any) -> Any:
+        # no_grad: the torch.func transforms inside ignore it, and it keeps
+        # autograd from recording the products against the module's own
+        # parameters that ``params`` leaves out (a partial dict), a graph
+        # that an iterative solver's loop would keep alive
         if self._batch_matmat_fn is None:
             self._batch_matmat_fn = self._make_batch_matmat()
         AM = None
@@ -251,6 +256,7 @@ class EmpiricalRiskOperator(LinearOperator):
         return AM
 
     # ---- gradient and loss over the dataset ----------------------------- #
+    @torch.no_grad()
     def gradient_and_loss(self) -> tuple[Any, torch.Tensor]:
         """The full-dataset gradient and loss, ``(gradient tree, scalar loss)``.
 

@@ -2,9 +2,11 @@
 
 The conv-covariance kernel (``kfac/kernels.py``) and the three flash-attention
 kernels (``models/flash_attention.py``: forward, ``bwd_dkv``, ``bwd_dq``),
-including a launch on a second device; and the curvature operators of
+including a launch on a second device; the curvature operators of
 ``risk.py`` (which reach no port kernel) on the card against the CPU, their
-multi-batch accumulation, and the flash GPT's refusal of forward mode.
+multi-batch accumulation, and the flash GPT's refusal of forward mode; and
+the solvers (CG, MINRES, LSMR, fast Lanczos, LOBPCG) on the card against
+the CPU, and the Neumann series' divergence on the card.
 
 These tests need the card: they skip without one. The card's machine has no
 JAX, so this file imports only the port, and runs there without the suite's
@@ -63,7 +65,9 @@ def _meta(C, kernel, stride, size):
 
 
 def rel_err(a, b) -> float:
-    return float((a.float() - b.float()).norm() / b.float().norm())
+    """Relative Frobenius error, computed in float64 (a float64 comparison
+    keeps its digits)."""
+    return float((a.double() - b.double()).norm() / b.double().norm())
 
 
 @pytest.mark.cuda
@@ -433,3 +437,65 @@ def test_kernels_launch_on_the_tensors_device(cuda):
     assert torch.cuda.current_device() == 0
     for a, b in ((o, o_ref), (lse, lse_ref), (dk, dk_ref), (dv, dv_ref), (dq, dq_ref)):
         assert a.device == dev and rel_err(a, b) < 1e-5
+
+
+# ---------------------------------------------------------------------- #
+# the solvers and inverse operators on the card (no port kernel)
+# ---------------------------------------------------------------------- #
+def _solve(solver: str, problem, V: torch.Tensor) -> torch.Tensor:
+    """One solver on a problem's damped GGN (LSMR: its Jacobian), 8 steps
+    from the given columns, as a flat tensor."""
+    from curvlinops_tpu_torch import (
+        CGInverseLinearOperator,
+        IdentityLinearOperator,
+        LSMRInverseLinearOperator,
+        MINRESInverseLinearOperator,
+    )
+    from curvlinops_tpu_torch.solvers.lanczos import fast_lanczos
+
+    model, loss, params, data = _args(problem)
+    if solver == "lsmr":
+        J = JacobianLinearOperator(model, params, data)
+        return LSMRInverseLinearOperator(J, maxiter=8, atol=0.0, btol=0.0) @ V[: J.shape[0]]
+    G = GGNLinearOperator(model, loss, params, data)
+    A = G + 0.1 * IdentityLinearOperator(G.in_spec)
+    if solver == "lanczos":
+        evals, evecs = fast_lanczos(A, 8, v0=V[:, 0])
+        return torch.cat([evals, evecs.abs().reshape(-1)])
+    cls = CGInverseLinearOperator if solver == "cg" else MINRESInverseLinearOperator
+    return cls(A, maxiter=8, tol=0.0, atol=0.0) @ V
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["cg", "minres", "lsmr", "lanczos"])
+def test_solver_card_matches_cpu(cuda, solver):
+    """The tiny MLP (float64), the same start columns: 8 iterations on the
+    card against the CPU to 1e-10 relative."""
+    cpu, card = tmlp.tiny_mlp_problem(device="cpu"), tmlp.tiny_mlp_problem(device=cuda)
+    n = GGNLinearOperator(*_args(cpu)).shape[0]
+    V = torch.randn((n, 2), generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+    on_cpu = _solve(solver, cpu, V)
+    on_card = _solve(solver, card, V.to(cuda))
+    assert on_card.device.type == "cuda"
+    assert rel_err(on_card.cpu(), on_cpu) < 1e-10
+
+
+@pytest.mark.cuda
+def test_lobpcg_and_neumann_on_card(cuda):
+    """LOBPCG on a dense SPD matrix on the card against the CPU (float64,
+    one start block), and the Neumann series' divergence raised on the card."""
+    from curvlinops_tpu_torch import MatrixLinearOperator, NeumannInverseLinearOperator
+    from curvlinops_tpu_torch.solvers.eigsh import lobpcg_standard
+
+    gen = torch.Generator().manual_seed(0)
+    A = torch.randn((40, 40), generator=gen, dtype=torch.float64)
+    A = A @ A.T / 40 + torch.eye(40, dtype=torch.float64)
+    X0 = torch.randn((40, 3), generator=gen, dtype=torch.float64)
+    theta_cpu, U_cpu, _ = lobpcg_standard(A, X0, m=6)
+    theta, U, _ = lobpcg_standard(A.to(cuda), X0.to(cuda), m=6)
+    assert U.device.type == "cuda"
+    assert rel_err(theta.cpu(), theta_cpu) < 1e-10 and rel_err(U.abs().cpu(), U_cpu.abs()) < 1e-8
+    inv = NeumannInverseLinearOperator(MatrixLinearOperator(5 * torch.eye(4, device=cuda)),
+                                       num_terms=200)
+    with pytest.raises(ValueError, match="diverged"):
+        inv @ torch.ones(4, device=cuda)

@@ -387,6 +387,26 @@ def test_einsum_gpt_ggn_matches_jax():
 # ---------------------------------------------------------------------- #
 # repairs and independence from JAX
 # ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("op", ["ggn", "hessian", "ef", "jacobian", "jacobian_t", "gradient"])
+def test_products_carry_no_autograd_graph(op):
+    """On a partial parameter dict (KFAC's, BatchNorm left in the module),
+    every product and the gradient come back without an autograd graph:
+    the module's own parameters require gradients, and a solver's loop
+    over products that recorded against them kept every iteration's graph
+    alive (a fault of the port before the solvers' slice)."""
+    problem = narrow_resnet_problem(device="cpu")
+    assert len(problem.kfac_params) < len(problem.params)
+    case = {"torch": dict(model=problem.model, loss_fn=problem.loss_fn,
+                          params=problem.kfac_params, data=problem.data, batch_size_fn=None)}
+    if op == "gradient":
+        out = port_operator("ggn", case).gradient_and_loss()[0]
+    else:
+        A = port_operator(op, case)
+        v = torch.randn(A.shape[1], generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+        out = {"out": A @ v}
+    assert not any(t.requires_grad for t in out.values())
+
+
 def test_to_jax_params_keeps_float64():
     """A float64 ``named`` dict round-trips bit for bit; bfloat16 becomes
     float32 (numpy has no bfloat16)."""
