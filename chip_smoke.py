@@ -86,6 +86,7 @@ Any failed check raises, and the script exits nonzero without a status line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -170,15 +171,20 @@ def device_profile(torch, label: str, fn) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    t_events = time.perf_counter()
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    # the raw events: building prof.events()' trees took 73-103 s for the
+    # tens of thousands of launches of one cuSOLVER eigh
+    events = prof.profiler.kineto_results.events()
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
     device_ms = sum(ms for ms, _ in by_name.values())
     print(
         f"profile, {label}: wall {wall_ms:.3f} ms, device {device_ms:.3f} ms, "
-        f"busy {device_ms / wall_ms:.3f} (profiling took {time.perf_counter() - t_start:.1f} s)"
+        f"busy {device_ms / wall_ms:.3f} (profiling took {time.perf_counter() - t_start:.1f} s, "
+        f"of which reading its {len(events)} events {time.perf_counter() - t_events:.1f} s)"
     )
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     for rank, (name, (ms, n)) in enumerate(ranked):
@@ -276,8 +282,10 @@ def main() -> None:
     marks.append(time.perf_counter())
     solver_phases(torch, dev, smi)
     marks.append(time.perf_counter())
+    kfac_family_phases(torch, dev, smi)
+    marks.append(time.perf_counter())
     print("phase seconds: ResNet-18 kernel and KFAC {:.1f}, GPT kernels and KFAC {:.1f}, "
-          "curvature operators {:.1f}, solvers {:.1f}".format(
+          "curvature operators {:.1f}, solvers {:.1f}, KFAC family {:.1f}".format(
               *(b - a for a, b in zip(marks, marks[1:]))))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
@@ -431,8 +439,13 @@ def resnet_phases(torch, dev, kernels) -> dict:
         runs[use_kernel].append(warm_build(torch, problem, use_kernel=use_kernel))
     for use_kernel, label in ((False, "plain"), (True, "kernel")):
         report_warm(runs[use_kernel], f"{label} path")
+    # each factor pass also with the F.unfold patches the port had before the
+    # strided views (one im2col launch per sample on CUDA): before, then after
     for use_kernel, label in ((True, "kernel"), (False, "plain")):
         comp = factor_computer(problem, use_kernel=use_kernel)
+        with unfold_patches():
+            device_profile(torch, f"ResNet-18 factor pass, {label} path, F.unfold patches "
+                           "(before)", comp.compute)
         device_profile(torch, f"ResNet-18 factor pass, {label} path", comp.compute)
     device_profile(torch, "ResNet-18 heuristic inverse + apply",
                    lambda: kfac.inverse(damping=1e-3, use_heuristic_damping=True) @ grad)
@@ -461,6 +474,30 @@ def resnet_phases(torch, dev, kernels) -> dict:
         # matmul(P^T, P) on the materialised patch matrix, extraction not timed
         "library_ms": library_ms,
     }
+
+
+@contextlib.contextmanager
+def unfold_patches():
+    """Swap the ``F.unfold`` patch extraction the port had before the strided
+    views into ``kfac/math.py`` (for the before/after profile only)."""
+    import torch.nn.functional as F
+
+    from curvlinops_tpu_torch.kfac import math as kmath
+
+    def extract(x, meta):
+        (ph0, ph1), (pw0, pw1) = meta["padding"]
+        kh, kw = meta["kernel"]
+        B, C = x.shape[0], x.shape[1]
+        cols = F.unfold(F.pad(x, (pw0, pw1, ph0, ph1)), (kh, kw), stride=meta["stride"])
+        S = cols.shape[-1]
+        return cols.reshape(B, C, kh * kw, S).permute(0, 3, 2, 1).reshape(B, S, kh * kw * C)
+
+    saved = kmath.extract_conv_patches
+    kmath.extract_conv_patches = extract
+    try:
+        yield
+    finally:
+        kmath.extract_conv_patches = saved
 
 
 def gradient(torch, problem) -> dict:
@@ -1308,6 +1345,316 @@ def solvers_card_against_cpu(torch, dev) -> float:
         worst = max(worst, err)
         if not err <= CARD_CPU_TOL:
             raise RuntimeError(f"{name}: card vs CPU rel err {err} (tol {CARD_CPU_TOL})")
+    return worst
+
+
+# ---------------------------------------------------------------------- #
+# the rest of the KFAC family: REDUCE, the rank-r inverse, EKFAC, KFOC
+# ---------------------------------------------------------------------- #
+FAMILY_DAMPING = 0.1  # the damped inverses' delta
+FAMILY_RANKS = (64, 256)  # the randomized inverse's ranks (and one at or above every D)
+RANK_FULL_TOL = 1e-4  # rank >= D against the exact inverse, relative
+EKFAC_RANK = 256  # EKFAC's sector route
+KFOC_RESNET_BATCH = 32  # KFOC's per-sample gradients [N, d_out, d_in]: 4.8 GB a group at 512
+
+
+def family_report(item: str, **fields) -> None:
+    """One JSON line of the KFAC family phase."""
+    print(json.dumps({"kfac_family_phase": item, **fields}))
+
+
+def finite_tree(tree) -> bool:
+    """Every tensor of a dict, tuple or tensor finite."""
+    leaves = tree.values() if isinstance(tree, dict) else tree
+    leaves = [leaves] if hasattr(leaves, "isfinite") else leaves
+    return all(bool(t.isfinite().all()) for t in leaves)
+
+
+def rank_inverses(torch, kfac, grad: dict, label: str, smi: str) -> None:
+    """``inverse(damping, use_exact_damping=True, rank=r)`` applied to the
+    gradient for each of ``FAMILY_RANKS`` and one rank at or above every
+    factor's dimension (which must equal the exact inverse's apply to
+    ``RANK_FULL_TOL``), each timed against the exact inverse + apply."""
+    def apply(**kw):
+        return kfac.inverse(damping=FAMILY_DAMPING, use_exact_damping=True, **kw) @ grad
+
+    exact, exact_ms = timed(torch, apply)
+    full = max(S.shape[-1] for _, fs in kfac._blocks_data.values() for S in fs)
+    rows = []
+    for r in (*FAMILY_RANKS, full):
+        step, ms = timed(torch, lambda: apply(rank=r))
+        err = rel_err(flat(step), flat(exact))
+        if not finite_tree(step):
+            raise RuntimeError(f"{label}: the rank-{r} step is not finite")
+        if r == full and not err <= RANK_FULL_TOL:
+            raise RuntimeError(f"{label}: rank {r} >= every D differs from the exact inverse: "
+                               f"{err} (tol {RANK_FULL_TOL})")
+        rows.append({"rank": r, "inverse_and_apply_ms": ms, "rel_err_vs_exact": err})
+    _, exact_again_ms = timed(torch, apply)
+    family_report(f"rank-r inverse, {label}", damping=FAMILY_DAMPING,
+                  exact_inverse_and_apply_ms=[exact_ms, exact_again_ms], ranks=rows,
+                  full_rank=full, full_rank_tol=RANK_FULL_TOL, card=smi)
+    r = FAMILY_RANKS[-1]
+    device_profile(torch, f"{label} rank-{r} inverse + apply", lambda: apply(rank=r))
+
+
+def power_summary(kfoc) -> dict:
+    """KFOC's power iterations over the groups: iterations (min, median,
+    max), the largest residual, and how many groups stopped on the
+    tolerance (the default, 10 eps of float32), on stagnation or at the
+    cap."""
+    import torch
+
+    info, cap = kfoc.power_info, kfoc._computer.power_iters
+    tol = 10 * torch.finfo(torch.float32).eps
+    iters = [int(v["iterations"]) for v in info.values()]
+    res = [float(v["residual"]) for v in info.values()]
+    at_tol = sum(r <= tol for r in res)
+    at_cap = sum(i >= cap and r > tol for i, r in zip(iters, res))
+    return {"groups": len(iters), "iterations_min_median_max":
+            [min(iters), statistics.median(iters), max(iters)], "max_residual": max(res),
+            "stopped_on_tol": at_tol, "stopped_on_stagnation": len(iters) - at_tol - at_cap,
+            "stopped_at_cap": at_cap, "cap": cap, "tol": tol}
+
+
+def kfac_family_phases(torch, dev, smi: str) -> None:
+    """REDUCE, the rank-r inverse, EKFAC and KFOC: on ResNet-18 (B=512;
+    KFOC at B=32) and GPT-2 small (flash, B=4, T=1024), then the card
+    against the CPU in float64; float32, TF32 off, every gate fatal."""
+    from curvlinops_tpu_torch import EKFACLinearOperator, KFACLinearOperator, KFOCLinearOperator
+    from curvlinops_tpu_torch.kfac import kernels
+    from curvlinops_tpu_torch.kfac import math as kmath
+    from curvlinops_tpu_torch.kfac.collector import TracedModel
+    from curvlinops_tpu_torch.kfac.ekfac import EKFACComputer
+    from curvlinops_tpu_torch.models import flash_attention as fa
+    from curvlinops_tpu_torch.models.gpt import GPTConfig, shakespeare_nanogpt
+    from curvlinops_tpu_torch.models.resnet import cifar10_resnet18
+
+    conv = kernels.conv_input_covariance
+    problem = cifar10_resnet18(batch_size=BATCH, seed=0, device=dev)
+    args = (problem.model, problem.loss_fn, problem.kfac_params, problem.data)
+    X = problem.data[0][0]
+
+    # ---- REDUCE on ResNet-18: averaged patches, no conv kernel --------- #
+    conv.launches = 0
+    red, build_ms = timed(torch, lambda: KFACLinearOperator(*args, fisher_type="mc",
+                                                            kfac_approx="reduce"))
+    launches = conv.launches
+    # the plain materialized REDUCE: the location mean of the patch tensor
+    traced = TracedModel(problem.model, problem.kfac_params, X)
+    _, inputs, _ = traced.apply_with_io(problem.kfac_params, X)
+    worst = 0.0
+    for gi, group in enumerate(red.groups):
+        if group.weight_path is None:
+            continue
+        (u,) = group.uses
+        x = inputs[u.layer_id].detach()
+        a = (kmath.extract_conv_patches(x, u.meta) if u.kind == "conv"
+             else x.reshape(x.shape[0], -1, u.meta["d_in"])).mean(1)
+        worst = max(worst, rel_err(red._aaT[gi], a.T @ a / red._computer.num_data))
+    del traced, inputs
+    family_report("REDUCE, ResNet-18", batch=BATCH, fisher="mc", build_ms=build_ms,
+                  groups=len(red.groups), conv_kernel_launches=launches,
+                  aaT_vs_materialized_mean_rel_err=worst, tol=FACTOR_TOL, card=smi)
+    if launches != 0 or not worst < FACTOR_TOL:
+        raise RuntimeError(f"REDUCE on ResNet-18: {launches} conv kernel launches (expected 0), "
+                           f"factors against the materialized mean {worst} (tol {FACTOR_TOL})")
+    del red
+
+    # ---- the rank-r inverse on ResNet-18 (EXPAND, MC, conv kernel) ----- #
+    conv.launches = 0
+    kfac, build_ms = timed(torch, lambda: KFACLinearOperator(*args, fisher_type="mc",
+                                                             check_deterministic=False))
+    launches = conv.launches
+    if launches != 19:
+        raise RuntimeError(f"the rank-r build launched the conv kernel {launches} times, not 19")
+    grad = gradient(torch, problem)
+    family_report("KFAC build for the rank-r inverse, ResNet-18", build_ms=build_ms,
+                  conv_kernel_launches=launches, card=smi)
+    rank_inverses(torch, kfac, grad, "ResNet-18", smi)
+    del kfac
+
+    # ---- EKFAC on ResNet-18: factor pass, eigh, correction pass -------- #
+    conv.launches = 0
+    comp = EKFACComputer(*args, fisher_type="mc", check_deterministic=False)
+    (aaT, ggT, groups), factor_ms = timed(torch, comp.compute)
+    launches = conv.launches
+    (Q_a, Q_g), eigh_ms = timed(torch, lambda: comp.eigenbases(aaT, ggT))
+    lambdas, corr_ms = timed(torch, lambda: comp.correction_pass(Q_a, Q_g))
+    ek = EKFACLinearOperator.from_state_dict(
+        {"Q_a": Q_a, "Q_g": Q_g, "lambdas": lambdas}, *args, fisher_type="mc"
+    )
+    # each weight group's contraction: its sharing length from the layer's output
+    out_sizes = {}
+    hooks = [m.register_forward_hook(lambda m, i, o, n=n: out_sizes.__setitem__(n, o.shape))
+             for n, m in problem.model.named_modules() if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        torch.func.functional_call(problem.model, problem.kfac_params, (X,))
+    for h in hooks:
+        h.remove()
+    strategies = {}
+    for g in groups:
+        if g.weight_path is not None:
+            shape = out_sizes.get(g.uses[0].name)
+            S = 1 if shape is None else shape[-1] * shape[-2]
+            strategies[g.name] = [S, g.d_out, g.d_in,
+                                  kmath.correction_strategy(S, g.d_out, g.d_in)]
+    ok = all(finite_tree(lam) and bool((lam >= 0).all()) for lam in lambdas.values())
+    matvec_ms = time_ms(lambda: ek @ grad, torch, reps=10)
+    step = ek.inverse(damping=FAMILY_DAMPING) @ grad
+    del aaT, ggT, comp
+    family_report("EKFAC, ResNet-18", batch=BATCH, fisher="mc", factor_pass_ms=factor_ms,
+                  eigh_ms=eigh_ms, correction_pass_ms=corr_ms,
+                  conv_kernel_launches_in_factor_pass=launches,
+                  strategies_S_D1_D2=strategies, corrected_eigenvalues_finite_nonnegative=ok,
+                  matvec_ms_median_of_10=matvec_ms, inverse_step_finite=finite_tree(step),
+                  card=smi)
+    if launches != 19 or not ok or not finite_tree(step):
+        raise RuntimeError(f"EKFAC: {launches} conv kernel launches (expected 19), corrected "
+                           f"eigenvalues finite and >= 0: {ok}, step finite: {finite_tree(step)}")
+    ek_rank, build_ms = timed(torch, lambda: EKFACLinearOperator(
+        *args, fisher_type="mc", check_deterministic=False, rank=EKFAC_RANK))
+    sector = [gi for gi, (kind, _) in ek_rank._blocks_data.items() if kind == "lreigh"]
+    rank_step = ek_rank.inverse(damping=FAMILY_DAMPING) @ grad
+    ok = finite_tree(rank_step) and all(finite_tree(ek_rank.corrected_eigenvalues[gi])
+                                        for gi in sector)
+    family_report(f"EKFAC rank {EKFAC_RANK}, ResNet-18", build_ms=build_ms,
+                  sector_groups=len(sector),
+                  matvec_ms_median_of_10=time_ms(lambda: ek_rank @ grad, torch, reps=10),
+                  matvec_rel_err_vs_exact_ekfac=rel_err(flat(ek_rank @ grad), flat(ek @ grad)),
+                  inverse_step_rel_err_vs_exact_ekfac=rel_err(flat(rank_step), flat(step)),
+                  finite=ok, card=smi)
+    if not (sector and ok):
+        raise RuntimeError(f"EKFAC rank {EKFAC_RANK}: {len(sector)} sector groups, finite {ok}")
+    del ek, ek_rank, step, rank_step
+    comp = EKFACComputer(*args, fisher_type="mc", check_deterministic=False)
+    device_profile(torch, "ResNet-18 EKFAC build (factor pass, eigh, correction pass)",
+                   comp.compute_ekfac)
+    del comp
+    del problem, args, grad
+    torch.cuda.empty_cache()
+
+    # ---- KFOC on ResNet-18 at B = 32 ------------------------------------ #
+    small = cifar10_resnet18(batch_size=KFOC_RESNET_BATCH, seed=0, device=dev)
+    kfoc, build_ms = timed(torch, lambda: KFOCLinearOperator(
+        small.model, small.loss_fn, small.kfac_params, small.data, fisher_type="mc",
+        check_deterministic=False))
+    v = gradient(torch, small)
+    family_report(f"KFOC, ResNet-18 at batch {KFOC_RESNET_BATCH} (per-sample gradients "
+                  "[N, d_out, d_in]; at 512 one layer4 group is 4.8 GB)", build_ms=build_ms,
+                  power=power_summary(kfoc),
+                  matvec_ms_median_of_10=time_ms(lambda: kfoc @ v, torch, reps=10),
+                  finite=finite_tree(kfoc @ v), card=smi)
+    if not finite_tree(kfoc @ v):
+        raise RuntimeError("KFOC on ResNet-18: the matvec is not finite")
+    del small, kfoc, v
+    torch.cuda.empty_cache()
+
+    # ---- GPT-2 small, flash: REDUCE, the rank-r inverse, KFOC ----------- #
+    config = GPT_CONFIG or GPTConfig()
+    gpt = shakespeare_nanogpt(GPT_BATCH, config, seed=0, device=dev, attention_impl="flash")
+    gargs = (gpt.model, gpt.loss_fn, gpt.kfac_params, gpt.data)
+
+    def flash_counted(label, build):
+        for n in fa.launches:
+            fa.launches[n] = 0
+        op, ms = timed(torch, build)
+        launches = dict(fa.launches)
+        if min(launches.values()) < config.n_layer:
+            raise RuntimeError(f"{label}: a flash kernel ran fewer than {config.n_layer} "
+                               f"times: {launches}")
+        return op, ms, launches
+
+    red, build_ms, launches = flash_counted("REDUCE on the GPT", lambda: KFACLinearOperator(
+        *gargs, fisher_type="mc", kfac_approx="reduce"))
+    ggrad = gradient(torch, gpt)
+    Kg = red @ ggrad
+    del red
+    einsum = shakespeare_nanogpt(GPT_BATCH, config, seed=0, device=dev, attention_impl="einsum")
+    ops = [KFACLinearOperator(p.model, p.loss_fn, p.kfac_params, p.data, fisher_type="empirical",
+                              kfac_approx="reduce", check_deterministic=False)
+           for p in (gpt, einsum)]
+    worst = max(max(rel_err(ops[0]._aaT[gi], ops[1]._aaT[gi]) for gi in ops[0]._aaT),
+                max(rel_err(ops[0]._ggT[gi], ops[1]._ggT[gi]) for gi in ops[0]._ggT))
+    del ops, einsum
+    family_report("REDUCE, GPT-2 small (flash)", batch=GPT_BATCH, T=config.block_size,
+                  fisher="mc", build_ms=build_ms, flash_launches=launches,
+                  empirical_factors_flash_vs_einsum_rel_err=worst, tol=FACTOR_TOL,
+                  finite=finite_tree(Kg), card=smi)
+    if not (worst < FACTOR_TOL and finite_tree(Kg)):
+        raise RuntimeError(f"REDUCE on the GPT: flash vs einsum factors {worst} "
+                           f"(tol {FACTOR_TOL}), finite {finite_tree(Kg)}")
+
+    kfac, build_ms, launches = flash_counted("KFAC on the GPT", lambda: KFACLinearOperator(
+        *gargs, fisher_type="mc", check_deterministic=False))
+    family_report("KFAC build for the rank-r inverse, GPT-2 small (flash)", build_ms=build_ms,
+                  flash_launches=launches, card=smi)
+    rank_inverses(torch, kfac, ggrad, "GPT-2 small", smi)
+    del kfac
+    torch.cuda.empty_cache()
+
+    kfoc, build_ms, launches = flash_counted("KFOC on the GPT", lambda: KFOCLinearOperator(
+        *gargs, fisher_type="mc", check_deterministic=False))
+    Kg = kfoc @ ggrad
+    family_report("KFOC, GPT-2 small (flash)", batch=GPT_BATCH, build_ms=build_ms,
+                  flash_launches=launches,
+                  power=power_summary(kfoc),
+                  matvec_ms_median_of_10=time_ms(lambda: kfoc @ ggrad, torch, reps=10),
+                  finite=finite_tree(Kg), card=smi)
+    if not finite_tree(Kg):
+        raise RuntimeError("KFOC on the GPT: the matvec is not finite")
+    del gpt, gargs, kfoc, Kg, ggrad
+    torch.cuda.empty_cache()
+
+    worst = family_card_against_cpu(torch, dev)
+    family_report("card vs CPU", problems=["narrow ResNet", "tiny MLP"], dtype="float64",
+                  operators=list(FAMILY_BUILDS), worst_relative_error=worst, tol=CARD_CPU_TOL)
+
+
+FAMILY_BUILDS = {
+    "REDUCE": lambda K, E, F, m, loss, p, d: K(m, loss, p, d, kfac_approx="reduce"),
+    "rank 4 inverse": lambda K, E, F, m, loss, p, d: K(m, loss, p, d).inverse(
+        damping=FAMILY_DAMPING, use_exact_damping=True, rank=4),
+    "EKFAC": lambda K, E, F, m, loss, p, d: E(m, loss, p, d),
+    "EKFAC rank 4": lambda K, E, F, m, loss, p, d: E(m, loss, p, d, rank=4),
+    "KFOC": lambda K, E, F, m, loss, p, d: F(m, loss, p, d),
+}
+
+
+def family_card_against_cpu(torch, dev) -> float:
+    """Each of ``FAMILY_BUILDS`` (type-2) by the same code on the card and on
+    the CPU, float64, on the narrow ResNet and the tiny MLP (as
+    ``mlp_module``, its first batch): ``A @ V`` to ``CARD_CPU_TOL``; returns
+    the worst relative error."""
+    from curvlinops_tpu_torch import EKFACLinearOperator, KFACLinearOperator, KFOCLinearOperator
+    from curvlinops_tpu_torch.losses import CrossEntropyLoss
+    from curvlinops_tpu_torch.models.mlp import mlp_module, tiny_mlp_problem
+    from curvlinops_tpu_torch.models.resnet import narrow_resnet_problem
+
+    def case(name, device):
+        if name == "tiny MLP":
+            p = tiny_mlp_problem(device=device)
+            model = mlp_module(p.params)
+            return model, dict(model.named_parameters()), p.data[:1]
+        p = narrow_resnet_problem(device=device)
+        return p.model, p.kfac_params, p.data
+
+    loss = CrossEntropyLoss("mean")
+    classes = [lambda *a, C=C, **kw: C(*a, fisher_type="type-2", check_deterministic=False, **kw)
+               for C in (KFACLinearOperator, EKFACLinearOperator, KFOCLinearOperator)]
+    worst = 0.0
+    for name in ("narrow ResNet", "tiny MLP"):
+        (m_c, p_c, d_c), (m_g, p_g, d_g) = case(name, "cpu"), case(name, dev)
+        n = sum(t.numel() for t in p_c.values())
+        V = torch.randn((n, 2), generator=torch.Generator().manual_seed(7), dtype=torch.float64)
+        for label, build in FAMILY_BUILDS.items():
+            on_cpu = build(*classes, m_c, loss, p_c, d_c) @ V
+            on_card = (build(*classes, m_g, loss, p_g, d_g) @ V.to(dev)).cpu()
+            err = rel_err(on_card, on_cpu)
+            worst = max(worst, err)
+            if not err <= CARD_CPU_TOL:
+                raise RuntimeError(f"{name} {label}: card vs CPU rel err {err} "
+                                   f"(tol {CARD_CPU_TOL})")
     return worst
 
 

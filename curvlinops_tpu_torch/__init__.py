@@ -3,14 +3,17 @@
 The package mirrors ``curvlinops_tpu``'s module paths. It imports ``torch``
 and never ``jax``; the JAX package stays the reference, and the port's
 tests hold each module against its JAX counterpart on the CPU. The slices
-ported so far run KFAC on ResNet-18/CIFAR-10 and on nanoGPT (GPT-2 small),
-the empirical-risk curvature operators, and the structured operators and
+ported so far run the KFAC family (KFAC with EXPAND and REDUCE, its exact,
+heuristic and randomized rank-``r`` damped inverses, EKFAC and KFOC) on
+ResNet-18/CIFAR-10 and on nanoGPT (GPT-2 small), the empirical-risk
+curvature operators, and the structured operators and
 the on-device solvers: losses and loss-Hessian structure, the ResNet, GPT
 and MLP models, the operator core (base with ``to_scipy``, dense, diagonal,
 block-diagonal, eigh, Kronecker and embedding blocks, stacked, submatrix),
 the solvers (CG, MINRES, LSMR, Lanczos, LOBPCG) and the inverse operators
 built on them (CG, MINRES, LSMR, Neumann), the KFAC collector, factor computation,
-damped inverses and matvec, ``risk.py``'s ``EmpiricalRiskOperator`` and
+damped inverses (``kfac/randomized.py`` for ``rank=``) and matvec, EKFAC
+(``kfac/ekfac.py``) and KFOC (``kfac/kfoc.py``), ``risk.py``'s ``EmpiricalRiskOperator`` and
 the GGN/MC-Fisher, Hessian, empirical-Fisher and (transposed) Jacobian
 operators built on it, and the dense oracles of :mod:`examples`. The TPU
 kernels on those paths are hand-written CUDA kernels for Hopper: the conv
@@ -28,6 +31,8 @@ from curvlinops_tpu_torch.curvature.jacobian import (
     TransposedJacobianLinearOperator,
 )
 from curvlinops_tpu_torch.curvature.loss_hessian import FisherType, KFACType
+from curvlinops_tpu_torch.kfac.ekfac import EKFACLinearOperator
+from curvlinops_tpu_torch.kfac.kfoc import KFOCLinearOperator
 from curvlinops_tpu_torch.kfac.operator import KFACLinearOperator
 from curvlinops_tpu_torch.losses import BCEWithLogitsLoss, CrossEntropyLoss, MSELoss
 from curvlinops_tpu_torch.models.gpt import GPTConfig, shakespeare_nanogpt
@@ -78,6 +83,8 @@ __all__ = [
     "FisherType",
     "KFACType",
     "KFACLinearOperator",
+    "EKFACLinearOperator",
+    "KFOCLinearOperator",
     "MSELoss",
     "CrossEntropyLoss",
     "BCEWithLogitsLoss",

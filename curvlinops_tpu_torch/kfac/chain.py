@@ -1,7 +1,8 @@
 """Application and damped inversion of KFAC chains ``P @ blockdiag @ P^T``.
 
 PyTorch counterpart of ``curvlinops_tpu/kfac/chain.py`` for unstacked
-Kronecker blocks. :class:`KroneckerChainOperator` keeps the introspectable
+Kronecker blocks, eigendecomposed blocks and rank-``r`` sector blocks.
+:class:`KroneckerChainOperator` keeps the introspectable
 chain (canonical converters and one operator per block) and applies it
 directly block by block; :func:`grouped_kron_inverse` damps and inverts
 every factor with one batched Cholesky per distinct factor shape and reads
@@ -16,6 +17,7 @@ from typing import Any, Callable
 
 import torch
 
+from curvlinops_tpu_torch.kfac.randomized import LowRankSectorOperator, lr_apply
 from curvlinops_tpu_torch.ops.base import ChainLinearOperator, PytreeLinearOperator
 from curvlinops_tpu_torch.ops.blockdiag import BlockDiagonalLinearOperator
 from curvlinops_tpu_torch.ops.eigh import EighDecomposedLinearOperator
@@ -156,8 +158,10 @@ def stacked_kron_inverse(
 class KroneckerChainOperator(ChainLinearOperator):
     """``FromCanonical @ blockdiag(blocks) @ ToCanonical``.
 
-    ``blocks_data[gi]`` is ``("kron", [factors...])`` (a Kronecker block) or
-    ``("eigh", (eigenvalues, [Q factors...]))`` (an eigendecomposed block).
+    ``blocks_data[gi]`` is ``("kron", [factors...])`` (a Kronecker block),
+    ``("eigh", (eigenvalues, [Q factors...]))`` (an eigendecomposed block)
+    or ``("lreigh", (U_A, U_G, S11, s12, s21, s22))`` (a rank-``r`` 4-sector
+    block, :mod:`curvlinops_tpu_torch.kfac.randomized`).
     ``to_canonical`` / ``from_canonical`` map the parameter dict to the
     tuple of flat canonical blocks and back; both accept trailing column
     axes, and being permutations they are each other's adjoints.
@@ -184,6 +188,8 @@ class KroneckerChainOperator(ChainLinearOperator):
                         lam.reshape(-1), KroneckerProductLinearOperator(*Qs)
                     )
                 )
+            elif kind == "lreigh":
+                blocks.append(LowRankSectorOperator(data))
             else:
                 raise ValueError(f"Unknown block kind {kind!r}.")
         param_spec = spec_of(params)
@@ -204,6 +210,8 @@ class KroneckerChainOperator(ChainLinearOperator):
             kind, data = self._blocks_data[gi]
             if kind == "kron":
                 out.append(kron_matmat([S.to(dtype) for S in data], comp))
+            elif kind == "lreigh":
+                out.append(lr_apply(tuple(t.to(dtype) for t in data), comp))
             else:
                 lam, Qs = data
                 Qs = [Q.to(dtype) for Q in Qs]

@@ -196,7 +196,8 @@ class TracedModel:
             )
 
         with torch.no_grad():
-            self._forward(params, X_example, on_call, guard_active, guard)
+            out = self._forward(params, X_example, on_call, guard_active, guard)
+        self.output_shape = tuple(out.shape)  # the model output's, for EKFAC's 2d check
 
         used = {u.weight_path for u in self.layers} | {
             u.bias_path for u in self.layers if u.bias_path is not None

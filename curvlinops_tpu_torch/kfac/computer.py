@@ -3,9 +3,11 @@
 PyTorch counterpart of ``curvlinops_tpu/kfac/computer.py``. The collector
 finds the layers and taps their IO; per batch, one tapped forward gives the
 layer inputs (input covariances ``aaT``, through the Hopper kernel for
-eligible convs on CUDA), the grad outputs are drawn or computed in closed
-form, and ONE batched backward over all ``V`` grad-output vectors gives
-every layer's output gradients (gradient covariances ``ggT``).
+eligible convs on CUDA under EXPAND), the grad outputs are drawn or computed
+in closed form, and ONE batched backward over all ``V`` grad-output vectors
+gives every layer's output gradients (gradient covariances ``ggT``).
+EKFAC's correction pass and KFOC reuse the tapped forward and the batched
+backward (:meth:`KFACComputer._layer_grads`).
 """
 
 from __future__ import annotations
@@ -111,8 +113,10 @@ def build_groups(layers: list[LayerUse], separate_weight_and_bias: bool) -> list
 class KFACComputer:
     """Accumulates per-group ``aaT`` / ``ggT`` Kronecker factors over a dataset.
 
-    ``use_kernel`` routes eligible conv input covariances through the Hopper
-    kernel; ``"auto"`` means "iff the parameters are on a CUDA device".
+    ``kfac_approx`` is ``expand`` or ``reduce``. ``use_kernel`` routes
+    eligible float32 and bfloat16 conv input covariances through the Hopper
+    kernel under EXPAND (REDUCE takes the averaged patches, float64 the
+    plain path); ``"auto"`` means "iff the parameters are on a CUDA device".
     """
 
     def __init__(
@@ -138,14 +142,12 @@ class KFACComputer:
                 f"Loss must be one of {[c.__name__ for c in SUPPORTED_LOSSES]}."
             )
         fisher_type = FisherType(fisher_type)
-        if KFACType(kfac_approx) != KFACType.EXPAND:
-            raise NotImplementedError("kfac_approx='reduce' is not ported yet.")
         if fisher_type != FisherType.MC and mc_samples != 1:
             raise ValueError(f"mc_samples={mc_samples} requires fisher_type=FisherType.MC.")
         self.model, self.loss_fn, self.params = model, loss_fn, params
         self.data = data
         self.fisher_type, self.mc_samples = fisher_type, mc_samples
-        self.kfac_approx = KFACType.EXPAND
+        self.kfac_approx = KFACType(kfac_approx)
         self.separate_weight_and_bias = separate_weight_and_bias
         self.seed = seed
         self.device = next(iter(params.values())).device
@@ -191,6 +193,8 @@ class KFACComputer:
         if (
             self.use_kernel
             and use.kind == "conv"
+            and self.kfac_approx == KFACType.EXPAND
+            and x.dtype in (torch.float32, torch.bfloat16)  # the kernel's dtypes
             and conv_cov_kernel_supported(tuple(x.shape), use.meta)
         ):
             # fused patch extraction + covariance: no [B, S, d] patch tensor
@@ -198,24 +202,40 @@ class KFACComputer:
             return cov.float(), S
         return kmath.input_covariance(x, use.kind, use.meta, self.kfac_approx, bias_pad)
 
-    def _batch_factors(self, traced, X, y, generator, correction) -> tuple[dict, dict]:
-        pred, inputs, deltas = traced.apply_with_io(self.params, X)
+    @staticmethod
+    def _bias_pad(group: ParamGroup, use: LayerUse) -> float | None:
+        """The constant input column of a joint group (0 for a use without
+        the bias), or ``None``."""
+        return None if not group.joint else (1.0 if use.bias_path else 0.0)
 
-        aaT = {}
-        for gi, group in enumerate(self.groups):
-            if group.weight_path is None:
-                continue  # bias block: no input covariance
-            cov, S_total = None, 0
-            for u in group.uses:
-                bias_pad = None if not group.joint else (1.0 if u.bias_path else 0.0)
-                cov_u, S_u = self._input_covariance(inputs[u.layer_id], u, bias_pad)
-                cov = cov_u if cov is None else cov + cov_u
-                S_total += S_u
-            aaT[gi] = cov / (self.num_data * S_total)
+    def _group_inputs(self, inputs: list, group: ParamGroup) -> torch.Tensor:
+        """A weight group's inputs in sharing format ``[B, S, d_in]`` (the
+        uses concatenated along ``S``, the bias column appended when joint)."""
+        parts = [
+            kmath.input_to_sharing_format(
+                inputs[u.layer_id], u.kind, u.meta, self.kfac_approx, self._bias_pad(group, u)
+            )
+            for u in group.uses
+        ]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
-        if self.fisher_type == FisherType.FORWARD_ONLY:
-            return aaT, {}  # identity ggT is attached after the data loop
+    def _group_grads(self, grads: list, group: ParamGroup) -> torch.Tensor:
+        """A group's output gradients in sharing format ``[V, B, S, d_out]``."""
+        parts = [
+            kmath.grad_to_sharing_format(grads[u.layer_id], u.kind, u.meta, self.kfac_approx)
+            for u in group.uses
+        ]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
 
+    def _layer_grads(self, pred, deltas, y, generator, correction) -> tuple[list, float]:
+        """Draw (or form) the grad outputs and run ONE batched backward over
+        all ``V`` of them.
+
+        Returns:
+            ``(grads, corr_eff)``: per layer call its output gradients
+            ``[V, B, *out]``, and the loss correction with the
+            ``ignore_index`` rescale applied.
+        """
         loss_fn = self.loss_fn
         rows = flatten_prediction(loss_fn, pred.detach())
         y_rows = flatten_target(loss_fn, y)
@@ -227,28 +247,51 @@ class KFACComputer:
         corr_eff = correction * mean_rescale(loss_fn, y)
         G_pred = self._unflatten_rows(G_rows, tuple(pred.shape))
 
-        # ONE batched backward over all V grad-output vectors
         def vjp(g_pred):
             grads = torch.autograd.grad(pred, deltas, g_pred, retain_graph=True, allow_unused=True)
             return [torch.zeros_like(d) if g is None else g for g, d in zip(grads, deltas)]
 
         if G_pred.shape[0] == 1:
-            grads = [g[None] for g in vjp(G_pred[0])]
-        else:
-            # torch.func.vmap, not is_grads_batched: the latter's legacy
-            # batching hands batched tensors to a custom Function's backward
-            # (flash attention's kernels), bypassing its vmap rule
-            grads = torch.func.vmap(vjp)(G_pred)
+            return [g[None] for g in vjp(G_pred[0])], corr_eff
+        # torch.func.vmap, not is_grads_batched: the latter's legacy batching
+        # hands batched tensors to a custom Function's backward (flash
+        # attention's kernels), bypassing its vmap rule
+        return torch.func.vmap(vjp)(G_pred), corr_eff
 
-        ggT = {}
+    def _batch_factors(self, traced, X, y, generator, correction) -> tuple[dict, dict]:
+        pred, inputs, deltas = traced.apply_with_io(self.params, X)
+
+        aaT = {}
         for gi, group in enumerate(self.groups):
-            parts = [
-                kmath.grad_to_sharing_format(grads[u.layer_id], u.kind, u.meta, self.kfac_approx)
-                for u in group.uses
-            ]
-            g = parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
-            ggT[gi] = kmath.gradient_covariance(g, corr_eff)
+            if group.weight_path is None:
+                continue  # bias block: no input covariance
+            cov, S_total = None, 0
+            for u in group.uses:
+                cov_u, S_u = self._input_covariance(
+                    inputs[u.layer_id], u, self._bias_pad(group, u)
+                )
+                cov = cov_u if cov is None else cov + cov_u
+                S_total += S_u
+            aaT[gi] = cov / (self.num_data * S_total)
+
+        if self.fisher_type == FisherType.FORWARD_ONLY:
+            return aaT, {}  # identity ggT is attached after the data loop
+
+        grads, corr_eff = self._layer_grads(pred, deltas, y, generator, correction)
+        ggT = {
+            gi: kmath.gradient_covariance(self._group_grads(grads, group), corr_eff)
+            for gi, group in enumerate(self.groups)
+        }
         return aaT, ggT
+
+    def _batch_correction(self, X) -> float:
+        """The loss correction of one batch (see :func:`kmath.loss_correction`)."""
+        return kmath.loss_correction(
+            self.batch_size_fn(X),
+            self.num_per_example_loss_terms,
+            self.loss_fn.reduction,
+            self.num_data,
+        )
 
     def compute(self) -> tuple[dict, dict, list[ParamGroup]]:
         """Accumulate factors over the dataset.
@@ -263,15 +306,9 @@ class KFACComputer:
         aaT_acc: dict = {}
         ggT_acc: dict = {}
         for idx, (X, y) in enumerate(self.data):
-            correction = kmath.loss_correction(
-                self.batch_size_fn(X),
-                self.num_per_example_loss_terms,
-                self.loss_fn.reduction,
-                self.num_data,
-            )
             aaT, ggT = self._batch_factors(
                 self._get_traced(X), X, y,
-                batch_generator(self.seed, idx, self.device), correction,
+                batch_generator(self.seed, idx, self.device), self._batch_correction(X),
             )
             for acc, new in ((aaT_acc, aaT), (ggT_acc, ggT)):
                 for gi, val in new.items():

@@ -1,24 +1,30 @@
-"""Weight-sharing-format math for KFAC factor computation (EXPAND).
+"""Weight-sharing-format math for KFAC factor computation.
 
 PyTorch counterpart of ``curvlinops_tpu/kfac/math.py``. Every supported layer
 is normalized to ``output[b, s] = W @ input[b, s] (+ bias)`` in the
 weight-sharing format ``[batch, shared, features]``:
 
-- linear inputs ``[B, *share, d_in]`` flatten their sharing dims;
+- linear inputs ``[B, *share, d_in]`` flatten their sharing dims (EXPAND) or
+  average them (REDUCE);
 - conv inputs (NCHW) are unfolded to ``[B, Ho*Wo, KH*KW*C]`` with the JAX
   package's kernel-offset-major, channel-minor ``(KH, KW, C)`` feature
   order, so factors compare element for element with the JAX package's; the
-  canonical conv weight ``[O, C, KH, KW] -> [O, KH*KW*C]`` matches it;
-- output gradients flatten their sharing dims to ``[V, B, S, d_out]``.
+  canonical conv weight ``[O, C, KH, KW] -> [O, KH*KW*C]`` matches it.
+  REDUCE needs only the location mean of the patches, which
+  :func:`extract_averaged_patches` takes from strided slices of the input
+  without the patch tensor;
+- output gradients flatten (EXPAND) or sum (REDUCE) their sharing dims to
+  ``[V, B, S, d_out]``.
 
 Covariance scalings follow the reference: ``aaT`` is divided by
 ``N_data * shared`` by the caller, ``ggT`` is multiplied by the loss
 correction ``num_loss_terms^2 / (per_example_terms * N_data)`` for mean
-reduction. Only ``KFACType.EXPAND`` is ported; REDUCE raises.
+reduction. :func:`eigenvalue_correction` holds EKFAC's corrected
+eigenvalues.
 
 Conv metadata (from :mod:`curvlinops_tpu_torch.kfac.collector`): ``stride``
 ``(sh, sw)``, ``padding`` ``((lo_h, hi_h), (lo_w, hi_w))``, ``kernel``
-``(kh, kw)``, ``C``, ``w_shape`` ``(O, C, kh, kw)``.
+``(kh, kw)``, ``C``, ``groups``, ``w_shape`` ``(O, C, kh, kw)``.
 """
 
 from __future__ import annotations
@@ -27,11 +33,6 @@ import torch
 import torch.nn.functional as F
 
 from curvlinops_tpu_torch.curvature.loss_hessian import KFACType
-
-
-def _require_expand(kfac_approx) -> None:
-    if KFACType(kfac_approx) != KFACType.EXPAND:
-        raise NotImplementedError("kfac_approx='reduce' is not ported yet.")
 
 
 def canonical_conv_weight(W: torch.Tensor) -> torch.Tensor:
@@ -64,22 +65,80 @@ def conv_output_size(size: int, kernel: int, stride: int, pads: tuple) -> int:
     return (size + pads[0] + pads[1] - kernel) // stride + 1
 
 
+def _group_average_channels(x: torch.Tensor, meta: dict) -> torch.Tensor:
+    """Average an NCHW input over channel groups (the reference's grouped
+    convolutions; the collector refuses ``groups != 1`` today)."""
+    groups = meta.get("groups", 1)
+    if groups == 1:
+        return x
+    B, C = x.shape[0], x.shape[1]
+    return x.reshape(B, groups, C // groups, *x.shape[2:]).mean(dim=1)
+
+
 def extract_conv_patches(x: torch.Tensor, meta: dict) -> torch.Tensor:
-    """Unfold an NCHW conv input to ``[B, Ho*Wo, KH*KW*C]`` in (KH, KW, C) order."""
+    """Unfold an NCHW conv input to ``[B, Ho*Wo, KH*KW*C]`` in (KH, KW, C) order.
+
+    The patches are a strided view of the zero-padded input
+    (``Tensor.unfold``), made contiguous in the canonical order by one copy
+    (``F.unfold`` launches one im2col kernel per sample on CUDA).
+    """
     (ph0, ph1), (pw0, pw1) = meta["padding"]
     kh, kw = meta["kernel"]
-    B, C = x.shape[0], x.shape[1]
+    sh, sw = meta["stride"]
+    x = F.pad(_group_average_channels(x, meta), (pw0, pw1, ph0, ph1))
+    win = x.unfold(2, kh, sh).unfold(3, kw, sw)  # [B, C, Ho, Wo, kh, kw]
+    B, C, Ho, Wo = win.shape[:4]
+    return win.permute(0, 2, 3, 4, 5, 1).reshape(B, Ho * Wo, kh * kw * C)
+
+
+def extract_averaged_patches(x: torch.Tensor, meta: dict) -> torch.Tensor:
+    """Location-averaged conv patches ``[B, 1, KH*KW*C]`` without the
+    ``[B, S, d_in]`` patch tensor.
+
+    REDUCE needs only the per-sample mean over output locations of the
+    unfolded input: for each kernel offset that is the mean of one strided
+    slice of the zero-padded input.
+    """
+    x = _group_average_channels(x, meta)
+    (ph0, ph1), (pw0, pw1) = meta["padding"]
+    kh, kw = meta["kernel"]
+    sh, sw = meta["stride"]
+    B, C, H, W = x.shape
+    Ho = conv_output_size(H, kh, sh, (ph0, ph1))
+    Wo = conv_output_size(W, kw, sw, (pw0, pw1))
     x = F.pad(x, (pw0, pw1, ph0, ph1))
-    cols = F.unfold(x, (kh, kw), stride=meta["stride"])  # [B, C*kh*kw, S], (C, K) order
-    S = cols.shape[-1]
-    return cols.reshape(B, C, kh * kw, S).permute(0, 3, 2, 1).reshape(B, S, kh * kw * C)
+    means = [
+        x[:, :, i : i + (Ho - 1) * sh + 1 : sh, j : j + (Wo - 1) * sw + 1 : sw].mean(dim=(2, 3))
+        for i in range(kh)
+        for j in range(kw)
+    ]  # [B, C] per offset, kernel-offset-major
+    return torch.stack(means, dim=1).reshape(B, 1, kh * kw * C)
 
 
-def input_to_sharing_format(x: torch.Tensor, kind: str, meta: dict) -> torch.Tensor:
-    """One layer input to ``[B, S, d_in]`` (EXPAND, no bias column)."""
-    if kind == "conv":
-        return extract_conv_patches(x, meta)
-    return x.reshape(x.shape[0], -1, meta["d_in"])
+def input_to_sharing_format(
+    x: torch.Tensor,
+    kind: str,
+    meta: dict,
+    kfac_approx: str = KFACType.EXPAND,
+    bias_pad: float | None = None,
+) -> torch.Tensor:
+    """One layer input to ``[B, S, d_in (+1)]``; REDUCE gives ``S = 1``.
+
+    ``bias_pad`` appends a constant column (the joint weight+bias block).
+    """
+    reduce = KFACType(kfac_approx) == KFACType.REDUCE
+    if kind == "conv" and reduce:
+        a = extract_averaged_patches(x, meta)
+    else:
+        if kind == "conv":
+            a = extract_conv_patches(x, meta)
+        else:
+            a = x.reshape(x.shape[0], -1, meta["d_in"])
+        if reduce:
+            a = a.mean(dim=1, keepdim=True)
+    if bias_pad is not None:
+        a = torch.cat([a, a.new_full((*a.shape[:-1], 1), bias_pad)], dim=-1)
+    return a
 
 
 def input_covariance(
@@ -98,13 +157,13 @@ def input_covariance(
          [ p*colsum^T,  p^2 * B * S  ]]
 
     Returns:
-        ``(cov [d(+1), d(+1)] float32, S)``; bf16 inputs are multiplied in
-        float32 (exact products) and accumulated in float32.
+        ``(cov [d(+1), d(+1)], S)`` in float32, or float64 for a float64
+        input; bf16 inputs are multiplied in float32 (exact products) and
+        accumulated in float32.
     """
-    _require_expand(kfac_approx)
-    a = input_to_sharing_format(x, kind, meta)
+    a = input_to_sharing_format(x, kind, meta, kfac_approx)
     B, S, d = a.shape
-    a2 = a.reshape(B * S, d).float()
+    a2 = _accumulation_dtype(a.reshape(B * S, d))
     cov = a2.T @ a2
     if bias_pad is None:
         return cov, S
@@ -118,16 +177,20 @@ def input_covariance(
 def grad_to_sharing_format(
     g: torch.Tensor, kind: str, meta: dict, kfac_approx: str
 ) -> torch.Tensor:
-    """Layer-output gradients ``[V, B, *out]`` to ``[V, B, S, d_out]``.
+    """Layer-output gradients ``[V, B, *out]`` to ``[V, B, S, d_out]``;
+    REDUCE sums the sharing dims (``S = 1``).
 
     Conv outputs are NCHW, so ``[V, B, O, Ho, Wo]`` moves its channels last.
     """
-    _require_expand(kfac_approx)
     V, B = g.shape[0], g.shape[1]
     if kind == "conv":
         g = g.movedim(2, -1)
-        return g.reshape(V, B, -1, g.shape[-1])
-    return g.reshape(V, B, -1, meta["d_out"])
+        g = g.reshape(V, B, -1, g.shape[-1])
+    else:
+        g = g.reshape(V, B, -1, meta["d_out"])
+    if KFACType(kfac_approx) == KFACType.REDUCE:
+        g = g.sum(dim=2, keepdim=True)
+    return g
 
 
 def loss_correction(
@@ -140,7 +203,87 @@ def loss_correction(
     return num_loss_terms**2 / (num_per_example_loss_terms * n_data)
 
 
+def _accumulation_dtype(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the dtype covariances accumulate in: float32, or float64 for
+    a float64 tensor."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def gradient_covariance(g: torch.Tensor, correction) -> torch.Tensor:
-    """``ggT = correction * sum_{v,b,s} g g^T`` over ``[V, B, S, d]``, in float32."""
-    g2 = g.reshape(-1, g.shape[-1]).float()
+    """``ggT = correction * sum_{v,b,s} g g^T`` over ``[V, B, S, d]``, in
+    float32 (float64 for a float64 ``g``)."""
+    g2 = _accumulation_dtype(g.reshape(-1, g.shape[-1]))
     return correction * (g2.T @ g2)
+
+
+def _batched_weight_grads_sq(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """``sum_{v,b} (left_vb^T right_b)^2`` for ``left [V, B, S, m]`` and
+    ``right [B, S, n]``: the squared per-sample products, summed."""
+    P = left.transpose(-1, -2) @ right  # [V, B, m, n], right broadcast over V
+    return (P * P).sum(dim=(0, 1))
+
+
+def eigenvalue_correction(
+    g: torch.Tensor,
+    Q_g: torch.Tensor,
+    a: torch.Tensor | None,
+    Q_a: torch.Tensor | None,
+    force_strategy: str | None = None,
+) -> torch.Tensor:
+    r"""EKFAC corrected eigenvalues ``sum_{v,n} (Q_g^T P_vn Q_a)^2``.
+
+    ``P_vn = sum_s g_vns a_ns^T`` are per-sample weight gradients in sharing
+    format. Two contraction orders with different peak memory, selected as
+    in the reference: per-example gradients (``N*D1*D2``) or Gramians
+    (``N*S^2*(D1+D2)``), the latter iff ``S^2 (D1 + D2) < D1 D2``. Every
+    contraction is a pairwise product; per-example gradients rotate before
+    or after the per-sample product, whichever costs fewer operations.
+
+    Args:
+        g: ``[V, B, S, D1]`` output gradients (KFAC-scaled).
+        Q_g: ``[D1, D1]`` eigenvectors of the gradient covariance.
+        a: ``[B, S, D2]`` inputs (with the bias column when joint), or
+            ``None`` for a bias-only group.
+        Q_a: ``[D2, D2]`` eigenvectors of the input covariance, or ``None``.
+        force_strategy: ``'gramian'``, ``'per_example_gradients'`` or
+            ``None`` (the rule above).
+
+    Returns:
+        ``[D1, D2]`` correction (``[D1]`` for the bias case).
+
+    Raises:
+        ValueError: For an unknown ``force_strategy`` or inconsistent
+            ``a``/``Q_a``.
+    """
+    if force_strategy not in ("gramian", "per_example_gradients", None):
+        raise ValueError(f"Invalid force_strategy: {force_strategy}.")
+    if (a is None) != (Q_a is None):
+        raise ValueError("a and Q_a must both be None or both be arrays.")
+    if a is None:  # bias-only: P_vn = sum_s g_vns
+        rot = g.sum(dim=2) @ Q_g  # [V, B, D1]
+        return (rot * rot).sum(dim=(0, 1))
+
+    S, D1, D2 = g.shape[2], Q_g.shape[0], Q_a.shape[0]
+    if correction_strategy(S, D1, D2, force_strategy) == "gramian":
+        a_rot = a @ Q_a  # [B, S, D2]
+        g_rot = g @ Q_g  # [V, B, S, D1]
+        B = a.shape[0]
+        # lam[i, j] = sum_{b,s,t} (sum_v g_rot[vbsi] g_rot[vbti]) a_rot[bsj] a_rot[btj]
+        g_gram = (g_rot[:, :, :, None, :] * g_rot[:, :, None, :, :]).sum(dim=0)
+        a_gram = a_rot[:, :, None, :] * a_rot[:, None, :, :]  # [B, S, S, D2]
+        return g_gram.reshape(B * S * S, D1).T @ a_gram.reshape(B * S * S, D2)
+    if S * (D1 * D1 + D2 * D2) < D1 * D2 * (D1 + D2):
+        # rotate the S rows first, then form the rotated per-sample products
+        return _batched_weight_grads_sq(g @ Q_g, a @ Q_a)
+    P = g.transpose(-1, -2) @ a  # [V, B, D1, D2]
+    rotated = (Q_g.T @ P) @ Q_a
+    return (rotated * rotated).sum(dim=(0, 1))
+
+
+def correction_strategy(S: int, D1: int, D2: int, force_strategy: str | None = None) -> str:
+    """EKFAC's contraction for sharing length ``S`` and factor dims ``D1``,
+    ``D2``: ``'gramian'`` iff ``S^2 (D1 + D2) < D1 D2`` (less memory than
+    the per-example gradients), unless forced."""
+    if force_strategy is not None:
+        return force_strategy
+    return "gramian" if S * S * (D1 + D2) < D1 * D2 else "per_example_gradients"

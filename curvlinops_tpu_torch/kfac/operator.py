@@ -34,8 +34,33 @@ from curvlinops_tpu_torch.kfac.chain import (
     grouped_kron_inverse,
 )
 from curvlinops_tpu_torch.kfac.computer import KFACComputer, ParamGroup
+from curvlinops_tpu_torch.kfac.randomized import batched_randomized_eigh, lr_damped_inverse_data
 from curvlinops_tpu_torch.ops.blockdiag import BlockDiagonalLinearOperator
 from curvlinops_tpu_torch.ops.kronecker import KroneckerProductLinearOperator
+
+
+def damped_eig_assembly(eig: dict, reig: dict, damping: float, struct: list) -> dict:
+    """Every exact and rank-``r`` damped-inverse block in one pass.
+
+    ``struct`` lists ``(gi, n_factors, mode)`` with ``mode`` ``"lr"`` (the
+    4-sector inverse of ``reig[(gi, 0)]`` and ``reig[(gi, 1)]``) or
+    ``"eig"`` (``1 / (kron(eigenvalues) + damping)`` in the Kronecker
+    eigenbasis of ``eig[(gi, fi)]``).
+
+    Returns:
+        ``{gi: ("lreigh" | "eigh", data)}`` chain blocks.
+    """
+    out = {}
+    for gi, n_factors, mode in struct:
+        if mode == "lr":
+            out[gi] = ("lreigh", lr_damped_inverse_data(reig[(gi, 0)], reig[(gi, 1)], damping))
+            continue
+        lam = eig[(gi, 0)][0]
+        for fi in range(1, n_factors):
+            lam = torch.kron(lam, eig[(gi, fi)][0])
+        Qs = [eig[(gi, fi)][1] for fi in range(n_factors)]
+        out[gi] = ("eigh", (1.0 / (lam + damping), Qs))
+    return out
 
 
 def make_to_canonical(
@@ -91,9 +116,9 @@ class KFACLinearOperator(KroneckerChainOperator):
 
     ``KFAC = FromCanonical @ blockdiag(ggT_i (x) aaT_i) @ ToCanonical``.
     ``fisher_type`` is one of type-2, mc, empirical and forward-only;
-    ``kfac_approx`` must be ``expand`` (REDUCE is not ported yet).
-    ``use_kernel`` routes eligible conv input covariances through the
-    Hopper kernel (``"auto"``: iff the parameters are on a CUDA device).
+    ``kfac_approx`` is ``expand`` or ``reduce``. ``use_kernel`` routes
+    eligible conv input covariances through the Hopper kernel under EXPAND
+    (``"auto"``: iff the parameters are on a CUDA device).
     """
 
     SELF_ADJOINT = True
@@ -177,6 +202,8 @@ class KFACLinearOperator(KroneckerChainOperator):
         use_exact_damping: bool = False,
         retry_double_precision: bool = True,
         rank: int | None = None,
+        rank_power_iters: int = 1,
+        rank_key: torch.Generator | None = None,
     ) -> KroneckerChainOperator:
         """Damped inverse: invert each block and rebuild the chain.
 
@@ -184,31 +211,53 @@ class KFACLinearOperator(KroneckerChainOperator):
         Cholesky, per-block float64 retry when one fails); exact damping
         eigendecomposes them and inverts ``kron(eigvals) + delta``.
 
+        With ``rank`` (requires ``use_exact_damping=True``), a block with a
+        factor larger than ``rank`` takes a randomized rank-``r``
+        eigendecomposition of its factors with a trace-preserving tail
+        (:mod:`curvlinops_tpu_torch.kfac.randomized`); a bias-only block
+        rides the same route with a trivial ``[1, 1]`` second factor
+        (``kron(S, [[1]]) == S``). Smaller blocks keep the exact ``eigh``,
+        and ``rank >= D`` reproduces the exact inverse. ``rank_key`` is the
+        ``torch.Generator`` that draws the test matrices (the JAX package's
+        key); the default, a CPU generator seeded 0, makes repeated builds
+        identical on any device.
+
         Raises:
-            ValueError: When both heuristic and exact damping are requested.
-            NotImplementedError: For ``rank=`` (the randomized inverse is
-                not ported yet).
+            ValueError: When both heuristic and exact damping are requested,
+                or when ``rank`` is given without ``use_exact_damping`` or is
+                not a positive int.
         """
         if use_heuristic_damping and use_exact_damping:
             raise ValueError("Choose either heuristic or exact damping, not both.")
         if rank is not None:
-            raise NotImplementedError("rank= (randomized inverse) is not ported yet.")
-        blocks_data = {}
+            if not use_exact_damping:
+                raise ValueError(
+                    "rank= requires use_exact_damping=True (plain/heuristic "
+                    "damping needs no eigendecomposition to begin with)."
+                )
+            if not isinstance(rank, int) or rank <= 0:
+                raise ValueError(f"rank must be a positive int, got {rank!r}.")
         if use_exact_damping:
-            eig = batched_eigh(
-                {
-                    (gi, fi): S
-                    for gi, (_, fs) in self._blocks_data.items()
-                    for fi, S in enumerate(fs)
-                }
+            flat, flat_rand, struct = {}, {}, []
+            for gi in sorted(self._blocks_data):
+                _, fs = self._blocks_data[gi]
+                if rank is not None and max(S.shape[-1] for S in fs) > rank:
+                    S = fs[0]
+                    flat_rand[(gi, 0)] = S
+                    flat_rand[(gi, 1)] = fs[1] if len(fs) == 2 else S.new_ones((1, 1))
+                    struct.append((gi, 2, "lr"))
+                    continue
+                for fi, S in enumerate(fs):
+                    flat[(gi, fi)] = S
+                struct.append((gi, len(fs), "eig"))
+            eig = batched_eigh(flat)
+            reig = (
+                batched_randomized_eigh(flat_rand, rank, rank_key, rank_power_iters)
+                if flat_rand else {}
             )
-            for gi, (_, fs) in self._blocks_data.items():
-                lam = eig[(gi, 0)][0]
-                for fi in range(1, len(fs)):
-                    lam = torch.kron(lam, eig[(gi, fi)][0])
-                Qs = [eig[(gi, fi)][1] for fi in range(len(fs))]
-                blocks_data[gi] = ("eigh", (1.0 / (lam + damping), Qs))
+            blocks_data = damped_eig_assembly(eig, reig, damping, struct)
         else:
+            blocks_data = {}
             inv = grouped_kron_inverse(
                 self._blocks_data, damping, use_heuristic_damping, min_damping
             )

@@ -5,12 +5,14 @@ PyTorch counterpart of ``curvlinops_tpu/models/mlp.py``: the
 model is functional, ``mlp_apply(params, x)``, on the JAX package's
 parameter tree (``{"dense0": {"W": [d_in, d_out], "b": [d_out]}, ...}``), so
 weights cross between the packages unchanged; the curvature operators take
-it as a plain callable.
+it as a plain callable. KFAC's collector needs ``nn.Linear`` modules:
+:func:`mlp_module` is the same network as one.
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from curvlinops_tpu_torch.losses import CrossEntropyLoss
 from curvlinops_tpu_torch.models.common import Problem, he_normal, resolve_device
@@ -27,6 +29,36 @@ def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
         if i < n - 1:
             x = torch.relu(x)
     return x
+
+
+class MLP(nn.Module):
+    """:func:`mlp_apply` as ``nn.Linear`` layers ``dense0``, ``dense1``, ...
+    with ReLU between them."""
+
+    def __init__(self, sizes):
+        super().__init__()
+        self.n = len(sizes) - 1
+        for i, (d_in, d_out) in enumerate(zip(sizes[:-1], sizes[1:])):
+            setattr(self, f"dense{i}", nn.Linear(d_in, d_out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # noqa: D102
+        for i in range(self.n):
+            x = getattr(self, f"dense{i}")(x)
+            if i < self.n - 1:
+                x = torch.relu(x)
+        return x
+
+
+def mlp_module(params: dict) -> MLP:
+    """:class:`MLP` at ``params`` (``weight = W^T``), on ``W``'s device and
+    dtype."""
+    Ws = [params[f"dense{i}"]["W"] for i in range(len(params))]
+    model = MLP([Ws[0].shape[0]] + [W.shape[1] for W in Ws]).to(Ws[0].device, Ws[0].dtype)
+    with torch.no_grad():
+        for i, W in enumerate(Ws):
+            getattr(model, f"dense{i}").weight.copy_(W.T)
+            getattr(model, f"dense{i}").bias.copy_(params[f"dense{i}"]["b"])
+    return model
 
 
 def init_mlp(

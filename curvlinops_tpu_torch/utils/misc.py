@@ -7,12 +7,14 @@ the operators differentiate w.r.t. a dict of named parameters and apply the
 module with ``torch.func.functional_call(model, params, (X,))``, so every
 other parameter and buffer stays fixed. ``make_functional_call`` is that
 adapter under the JAX package's name (which adapts flax and haiku modules
-there); ``allclose_report`` prints mismatching entries and ``split_list``
-cuts a sequence into chunks.
+there); ``allclose_report`` prints mismatching entries, ``split_list``
+cuts a sequence into chunks and ``full_float32_matmul`` turns TF32 off for
+the products it encloses.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -74,3 +76,20 @@ def split_list(xs: Sequence, sizes: Sequence[int]) -> list:
         out.append(list(xs[start : start + size]))
         start += size
     return out
+
+
+@contextlib.contextmanager
+def full_float32_matmul():
+    """Run the enclosed float32 matmuls at full float32 precision (TF32 off),
+    restoring the caller's ``torch.get_float32_matmul_precision()`` after.
+
+    The counterpart of ``precision=HIGHEST`` on a JAX product: a user's
+    ``torch.backends.cuda.matmul.allow_tf32 = True`` would otherwise round
+    the operands to 10 mantissa bits on the card.
+    """
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)

@@ -6,7 +6,9 @@ including a launch on a second device; the curvature operators of
 ``risk.py`` (which reach no port kernel) on the card against the CPU, their
 multi-batch accumulation, and the flash GPT's refusal of forward mode; and
 the solvers (CG, MINRES, LSMR, fast Lanczos, LOBPCG) on the card against
-the CPU, and the Neumann series' divergence on the card.
+the CPU, and the Neumann series' divergence on the card; the rest of the
+KFAC family (REDUCE, the rank-r inverse, EKFAC, KFOC) on the card against
+the CPU, and the randomized range finder under a user's ``allow_tf32``.
 
 These tests need the card: they skip without one. The card's machine has no
 JAX, so this file imports only the port, and runs there without the suite's
@@ -499,3 +501,76 @@ def test_lobpcg_and_neumann_on_card(cuda):
                                        num_terms=200)
     with pytest.raises(ValueError, match="diverged"):
         inv @ torch.ones(4, device=cuda)
+
+
+# ---------------------------------------------------------------------- #
+# the rest of the KFAC family on the card
+# ---------------------------------------------------------------------- #
+def _kfac_case(make, device):
+    """A problem with an ``nn.Module`` and one batch: the narrow ResNet, or
+    the tiny MLP as :func:`~curvlinops_tpu_torch.models.mlp.mlp_module` on
+    its first batch."""
+    problem = make(device=device)
+    if make is tmlp.tiny_mlp_problem:
+        model = tmlp.mlp_module(problem.params)
+        return model, dict(model.named_parameters()), problem.data[:1]
+    return problem.model, problem.kfac_params, problem.data
+
+
+def _family_apply(family, model, params, data, V):
+    """One operator of the family built type-2 and applied to ``V``."""
+    from curvlinops_tpu_torch import EKFACLinearOperator, KFOCLinearOperator
+
+    kw = dict(fisher_type="type-2", check_deterministic=False)
+    loss = CrossEntropyLoss("mean")
+    if family == "reduce":
+        A = KFACLinearOperator(model, loss, params, data, kfac_approx="reduce", **kw)
+    elif family == "rank":
+        A = KFACLinearOperator(model, loss, params, data, **kw).inverse(
+            damping=0.1, use_exact_damping=True, rank=4
+        )
+    elif family.startswith("ekfac"):
+        A = EKFACLinearOperator(model, loss, params, data,
+                                rank=4 if family == "ekfac_rank" else None, **kw)
+    else:
+        A = KFOCLinearOperator(model, loss, params, data, **kw)
+    return A @ V
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["reduce", "rank", "ekfac", "ekfac_rank", "kfoc"])
+@pytest.mark.parametrize("model", ["mlp", "resnet"])
+def test_kfac_family_card_matches_cpu(cuda, model, family):
+    """REDUCE, ``inverse(rank=4)``, EKFAC (exact and rank 4) and KFOC built
+    by the same code on the card and on the CPU, float64 (the rank-r test
+    matrices drawn on the CPU for both): ``A @ V`` to 1e-10 relative."""
+    make = tmlp.tiny_mlp_problem if model == "mlp" else tresnet.narrow_resnet_problem
+    on = {}
+    for dev in ("cpu", cuda):
+        m, params, data = _kfac_case(make, dev)
+        n = sum(p.numel() for p in params.values())
+        V = torch.randn((n, 2), generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+        on[str(dev)] = _family_apply(family, m, params, data, V.to(dev)).cpu()
+    assert rel_err(on[str(cuda)], on["cpu"]) < 1e-10
+
+
+@pytest.mark.cuda
+def test_randomized_range_finder_ignores_user_tf32(cuda):
+    """A user's ``allow_tf32 = True``: the range-finder and core products
+    still run in float32 (the same bases as with TF32 off, to 1e-6; the
+    basis orthonormal to 1e-4, where TF32 products would leave ~1e-3), and
+    the user's setting is back after the call."""
+    from curvlinops_tpu_torch.kfac.randomized import batched_randomized_eigh
+
+    gen = torch.Generator().manual_seed(0)
+    B = torch.randn((512, 512), generator=gen) / 512**0.5
+    S = ((B * (1.0 + torch.arange(512.0)) ** -2) @ B.T).to(cuda)
+    out = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        out[tf32] = batched_randomized_eigh({0: S}, 64, torch.Generator().manual_seed(1))[0]
+        assert torch.backends.cuda.matmul.allow_tf32 is tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the checks in float32
+    (lam0, U0, t0), (lam1, U1, t1) = out[False], out[True]
+    assert rel_err(lam1, lam0) < 1e-6 and rel_err(U1 @ U1.T, U0 @ U0.T) < 1e-6
+    assert float((U1.T @ U1 - torch.eye(64, device=cuda)).abs().max()) < 1e-4

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 from curvlinops_tpu.models import resnet as jresnet
 from curvlinops_tpu_torch.models import common as tcommon
@@ -80,7 +81,11 @@ def rel_fro(actual, expected) -> float:
 
 
 def jax_name(path) -> str:
-    """Torch parameter name of a JAX ``kfac_restricted`` leaf path."""
+    """Torch parameter name of a JAX leaf path: ``kfac_restricted``'s
+    one-key paths, or a nested dict's key paths."""
+    if len(path) > 1:
+        *prefix, leaf = (k.key for k in path)
+        return ".".join(prefix + [{"W": "weight", "b": "bias"}[leaf]])
     key = path[0].key if hasattr(path[0], "key") else path[0]
     parts = tcommon._KEYSTR.findall(key)
     return ".".join(parts[:-1] + [{"W": "weight", "b": "bias"}.get(parts[-1], parts[-1])])
@@ -132,3 +137,68 @@ def narrow_resnet(seed: int = 0, batch: int = 2, hw: int = 16, calib: int = 8) -
         X_calib=torch.from_numpy(X_calib).permute(0, 3, 1, 2).contiguous(),
         y_t=torch.from_numpy(y),
     )
+
+
+class SeqMLP(nn.Module):
+    """``l0, l1, ...`` dense layers applied at every sequence position
+    (weight sharing), tanh between them (unless ``linear``), the output
+    flattened to 2d (unless ``flatten`` is off)."""
+
+    def __init__(self, widths, linear: bool = False, flatten: bool = True):
+        super().__init__()
+        self.n, self.linear, self.flatten = len(widths) - 1, linear, flatten
+        for i, (a, b) in enumerate(zip(widths[:-1], widths[1:])):
+            setattr(self, f"l{i}", nn.Linear(a, b))
+
+    def forward(self, x):  # noqa: D102
+        for i in range(self.n):
+            x = getattr(self, f"l{i}")(x)
+            if i < self.n - 1 and not self.linear:
+                x = torch.tanh(x)
+        return x.reshape(x.shape[0], -1) if self.flatten else x
+
+
+def mlp_pair(widths, batch, seed, seq=None, linear=False):
+    """The same MLP (tanh, or ``linear``) in both packages: ``(jax model_fn,
+    jax params, jax data, torch model, torch data)`` from numpy draws of
+    ``seed`` (weights ``N(0, 0.16)``, biases ``N(0, 0.01)``); ``seq`` adds a
+    sequence axis of that length (weight sharing), flattened in the output.
+    MSE targets."""
+    rng = np.random.default_rng(seed)
+    jparams = {
+        f"l{i}": {
+            "W": (0.4 * rng.standard_normal((a, b))).astype(np.float32),
+            "b": (0.1 * rng.standard_normal(b)).astype(np.float32),
+        }
+        for i, (a, b) in enumerate(zip(widths[:-1], widths[1:]))
+    }
+    n = len(widths) - 1
+
+    def model_fn(p, x):
+        for i in range(n):
+            x = x @ p[f"l{i}"]["W"] + p[f"l{i}"]["b"]
+            if i < n - 1 and not linear:
+                x = jnp.tanh(x)
+        return x.reshape(x.shape[0], -1)
+
+    x_shape = (batch, widths[0]) if seq is None else (batch, seq, widths[0])
+    X = rng.standard_normal(x_shape).astype(np.float32)
+    y = rng.standard_normal((batch, widths[-1] * (seq or 1))).astype(np.float32)
+    model = SeqMLP(widths, linear)
+    model.load_state_dict(tcommon.from_jax_params(jparams, model))
+    return model_fn, jparams, [(X, y)], model, [(torch.from_numpy(X), torch.from_numpy(y))]
+
+
+def assert_same_vector(actual: dict, expected_jax: dict, model, tol: float, what: str):
+    """Each tensor of a port result against the JAX result mapped by name,
+    to relative Frobenius error ``tol``."""
+    expected = tcommon.from_jax_params(jax.tree.map(np.asarray, expected_jax), model)
+    for name in expected:
+        err = rel_fro(actual[name].detach().numpy(), expected[name].numpy())
+        assert err < tol, f"{what} {name}: relative error {err}"
+
+
+def random_jax_vector(params, seed: int):
+    """A standard normal float32 numpy tree shaped like ``params``."""
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda p: rng.standard_normal(np.shape(p)).astype(np.float32), params)
