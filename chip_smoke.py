@@ -73,7 +73,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    start's Rayleigh quotient, its residual printed) and a 1,000-index
    submatrix (a column against the full matvec); and CG, MINRES, LSMR and
    fast Lanczos on the card against the CPU in float64 (the tiny MLP);
-10. prints a JSON line of kernel results and, last, a JSON status line.
+10. the estimators, the GGN diagonal and the held linearizations
+    (``estimator_phases``, one JSON line per item), float32: on ResNet-18
+    at batch 512, KFAC's build (19 conv kernel launches) and each
+    estimator against KFAC's exact value within 5 standard errors
+    (Hutchinson, Hutch++, XTrace against ``trace()``, the squared Frobenius
+    norm against ``frobenius_norm()**2``, SLQ's ``logdet(K + delta I)``
+    against the factors' eigenvalues); the exact GGN diagonal over all
+    parameters (its sum against Hutch++ on the GGN and against the sums
+    of XDiag and of the MC diagonal within 5 standard errors, each MC
+    diagonal within ``MC_REL_TOL`` of it, which a 1.5x scale and half the
+    batch must exceed, SLQ with ``f = identity`` against Hutchinson on the
+    same probes to 1e-5); the held GGN and Hessian against their bases
+    (1e-5, no module call in a held matvec, times, memory, profiles) and
+    20 CG iterations on the held GGN + 0.1 I against the base's (1e-4 over
+    the iterations where two runs of the base agree to 1e-5); on GPT-2
+    small the MC diagonal through the flash kernels (their launches
+    counted) against the einsum model's (1e-4), the held GGN on the einsum
+    model with ``remat=None`` and ``save_smaller_than`` (1e-5, memory),
+    the flash model's refusal of ``linearized()``; and the card against
+    the CPU in float64;
+11. prints a JSON line of kernel results and, last, a JSON status line.
 
 Each kernel's bound is the larger of its bytes (each input read once, each
 output written once) at 3.35 TB/s and its float32 products at the card's
@@ -87,6 +107,7 @@ Any failed check raises, and the script exits nonzero without a status line.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -258,6 +279,7 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(smi)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(DEVICE)
@@ -284,8 +306,13 @@ def main() -> None:
     marks.append(time.perf_counter())
     kfac_family_phases(torch, dev, smi)
     marks.append(time.perf_counter())
+    phase_launches = estimator_phases(torch, dev, smi)
+    marks.append(time.perf_counter())
+    for entry in entries:
+        entry["launches"] += phase_launches[entry["name"]]
     print("phase seconds: ResNet-18 kernel and KFAC {:.1f}, GPT kernels and KFAC {:.1f}, "
-          "curvature operators {:.1f}, solvers {:.1f}, KFAC family {:.1f}".format(
+          "curvature operators {:.1f}, solvers {:.1f}, KFAC family {:.1f}, estimators, "
+          "GGN diagonal and held linearizations {:.1f}".format(
               *(b - a for a, b in zip(marks, marks[1:]))))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
@@ -1655,6 +1682,437 @@ def family_card_against_cpu(torch, dev) -> float:
             if not err <= CARD_CPU_TOL:
                 raise RuntimeError(f"{name} {label}: card vs CPU rel err {err} "
                                    f"(tol {CARD_CPU_TOL})")
+    return worst
+
+
+# ---------------------------------------------------------------------- #
+# the estimators, the GGN diagonal and the held linearizations
+# ---------------------------------------------------------------------- #
+EST_SE = 5.0  # a stochastic estimate passes within this many standard errors
+EST_REPEATS = 8  # independent repeats: the standard error of Hutch++, XTrace, XDiag and SLQ
+KFAC_MATVECS = 48  # probes of Hutchinson, Hutch++ (3 x 16), XTrace (2 x 24), Frobenius on KFAC
+SLQ_NCV, SLQ_PROBES = 48, 4  # SLQ on KFAC + delta I: Lanczos steps, probes per estimate
+SLQ_DELTA = 1e-3  # the damping delta of KFAC + delta I, relative to KFAC's largest eigenvalue
+GGN_MATVECS = 24  # Hutch++ (3 x 8) and XDiag (2 x 12) on ResNet-18's GGN
+MC_REL_TOL = 0.2  # ResNet-18's MC diagonal (1 sample a datum, B=512) against the exact
+# one, relative; on an H100 eight sound seeds read 0.066-0.092, a 1.5x scale 0.48 and
+# half the batch 0.51: the limit sits near their geometric middle
+SLQ_IDENTITY_TOL = 1e-5  # SLQ with f = identity against Hutchinson on the same probes
+HELD_TOL = 1e-5  # held against base matvec, relative (float32)
+HELD_CG_TOL = 1e-4  # CG residual histories, held against base, relative, over CG_REPRO's prefix
+CG_REPRO = 1e-5  # the prefix of CG iterations where two runs of the base agree to this
+CG_MIN_PREFIX = 12  # and that prefix must be at least this long (float32 CG turns chaotic
+# after about 17 iterations on ResNet-18's GGN + 0.1 I: on an H100 two runs of the base,
+# which differ by cuDNN's atomics, stayed within 2e-6 of each other up to there, then
+# drifted apart tenfold an iteration, to 1.0e-3 to 1.4e-3 by iteration 20)
+DIAG_TOL = 1e-4  # the flash GPT's MC diagonal against the einsum GPT's, relative
+DIAG_BATCH = 512  # ResNet-18's exact GGN diagonal
+REMAT_LIMIT = 2**26  # save_smaller_than on the GPT: holds [4, 1024, 768] (12.6 MB), not
+# [4, 12, 1024, 1024] (201 MB)
+
+
+def est_report(item: str, **fields) -> None:
+    """One JSON line of the estimator phase."""
+    print(json.dumps({"estimator_phase": item, **fields}))
+
+
+def within_se(estimates, exact: float, label: str, se: float | None = None) -> dict:
+    """Mean and standard error of ``estimates`` (the error of the mean, from
+    their spread unless ``se`` is given) and the gate ``|mean - exact| <=
+    EST_SE * se``."""
+    mean = statistics.fmean(estimates)
+    if se is None:
+        se = statistics.stdev(estimates) / math.sqrt(len(estimates))
+    z = abs(mean - exact) / se
+    if not (math.isfinite(mean) and z <= EST_SE):
+        raise RuntimeError(f"{label}: estimate {mean} vs exact {exact}, {z:.2f} standard errors "
+                           f"(se {se}, limit {EST_SE})")
+    return {"estimate": mean, "exact": exact, "standard_error": se, "z": z}
+
+
+def kfac_damped_logdet(torch, kfac, delta_rel: float) -> tuple[float, float, float]:
+    """``(delta, exact logdet(K + delta I), trace from the eigenvalues)`` of a
+    KFAC operator, in float64 from each block's factor eigenvalues
+    ``mu_j lambda_i``; ``delta = delta_rel * lambda_max``."""
+    spectra = []
+    for gi in range(len(kfac.groups)):
+        mu = torch.linalg.eigvalsh(kfac._ggT[gi].double())
+        lam = (torch.linalg.eigvalsh(kfac._aaT[gi].double()) if gi in kfac._aaT
+               else torch.ones(1, dtype=torch.float64, device=mu.device))
+        spectra.append(torch.outer(mu, lam).reshape(-1))
+    delta = delta_rel * max(float(s.max()) for s in spectra)
+    logdet = sum(float(torch.log(s + delta).sum()) for s in spectra)
+    return delta, logdet, sum(float(s.sum()) for s in spectra)
+
+
+def estimator_phases(torch, dev, smi: str) -> dict:
+    """The estimators on ResNet-18's KFAC and GGN, the exact and MC GGN
+    diagonal on ResNet-18 and the flash GPT, the held linearizations on
+    ResNet-18 and the einsum GPT, and the card against the CPU in float64;
+    float32, TF32 off, probes from seeded generators on the card (on the
+    CPU for the card against the CPU),
+    every gate fatal. Returns each kernel's launches in the phase."""
+    from curvlinops_tpu_torch import (
+        CGInverseLinearOperator,
+        GGNDiagonalLinearOperator,
+        GGNLinearOperator,
+        HessianLinearOperator,
+        IdentityLinearOperator,
+        KFACLinearOperator,
+        hutchinson_squared_fro,
+        hutchinson_trace,
+        hutchpp_trace,
+        slq_function_trace,
+        slq_logdet,
+        xdiag,
+        xtrace,
+    )
+    from curvlinops_tpu_torch.curvature.held import save_smaller_than
+    from curvlinops_tpu_torch.estimators.norm import squared_fro_terms
+    from curvlinops_tpu_torch.estimators.sampling import rademacher, random_matrix
+    from curvlinops_tpu_torch.estimators.trace import hutchinson_trace_core, hutchinson_trace_terms
+    from curvlinops_tpu_torch.kfac import kernels
+    from curvlinops_tpu_torch.models import flash_attention as fa
+    from curvlinops_tpu_torch.models.flash_attention import FORWARD_MODE_REFUSAL
+    from curvlinops_tpu_torch.models.gpt import GPTConfig, shakespeare_nanogpt
+    from curvlinops_tpu_torch.models.resnet import cifar10_resnet18
+    from curvlinops_tpu_torch.utils.flatten import tree_randn_like
+    from curvlinops_tpu_torch.utils.misc import as_model_fn
+
+    def gen(seed: int):
+        # on the card: a CPU generator took seconds to draw 48 columns of
+        # 11M entries, longer than the products
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def probe(A, seed: int) -> dict:
+        return tree_randn_like(torch.Generator().manual_seed(seed), A.in_spec)
+
+    def repeats(fn) -> tuple[list, float]:
+        """``EST_REPEATS`` estimates ``fn(seed)``, seeds 0, 1, ..., and the ms of one."""
+        values, ms = [], []
+        for seed in range(EST_REPEATS):
+            value, t = timed(torch, lambda: fn(seed))
+            values.append(float(value))
+            ms.append(t)
+        return values, statistics.median(ms)
+
+    conv = kernels.conv_input_covariance
+    problem = cifar10_resnet18(batch_size=BATCH, seed=0, device=dev)
+    kargs = (problem.model, problem.loss_fn, problem.kfac_params, problem.data)
+
+    # ---- 1. the estimators on ResNet-18's KFAC (kernel 1's factor pass) - #
+    conv.launches = 0
+    kfac, build_ms = timed(torch, lambda: KFACLinearOperator(*kargs, fisher_type="mc",
+                                                             check_deterministic=False))
+    conv_launches = conv.launches
+    if conv_launches != 19:
+        raise RuntimeError(f"the KFAC build launched the conv kernel {conv_launches} times, not 19")
+    dim = kfac.shape[0]
+    exact_tr, exact_fro2 = float(kfac.trace()), float(kfac.frobenius_norm()) ** 2
+    delta, exact_logdet, eig_tr = kfac_damped_logdet(torch, kfac, SLQ_DELTA)
+    if not abs(eig_tr - exact_tr) <= 1e-4 * abs(exact_tr):
+        raise RuntimeError(f"KFAC: trace from the factor eigenvalues {eig_tr} vs trace() {exact_tr}")
+    est_report("KFAC build, ResNet-18", batch=BATCH, fisher="mc", dimension=dim,
+               build_ms=build_ms, conv_kernel_launches=conv_launches, card=smi)
+    N = KFAC_MATVECS
+    G = random_matrix(gen(100), dim, N, "rademacher", torch.float32, dev)
+    terms = hutchinson_trace_terms(kfac, G)
+    est, ms = timed(torch, lambda: hutchinson_trace(kfac, N, generator=gen(100)))
+    se = float(terms.std()) / math.sqrt(N)
+    if not abs(float(est) - float(terms.mean())) <= 1e-5 * abs(float(est)):
+        raise RuntimeError("hutchinson_trace differs from its own per-probe terms")
+    est_report("hutchinson_trace(KFAC)", matvecs=N, ms=ms,
+               **within_se([float(est)], exact_tr, "hutchinson_trace(KFAC)", se), card=smi)
+    values, ms = repeats(lambda s: hutchpp_trace(kfac, N, generator=gen(s)))
+    est_report("hutchpp_trace(KFAC)", matvecs=N, repeats=values, ms_median=ms,
+               **within_se(values, exact_tr, "hutchpp_trace(KFAC)"), card=smi)
+    values, ms = repeats(lambda s: xtrace(kfac, N, generator=gen(s)))
+    est_report("xtrace(KFAC)", matvecs=N, repeats=values, ms_median=ms,
+               **within_se(values, exact_tr, "xtrace(KFAC)"), card=smi)
+    G = random_matrix(gen(101), dim, N, "rademacher", torch.float32, dev)
+    terms = squared_fro_terms(kfac, G)
+    est, ms = timed(torch, lambda: hutchinson_squared_fro(kfac, N, generator=gen(101)))
+    est_report("hutchinson_squared_fro(KFAC)", matvecs=N, ms=ms,
+               **within_se([float(est)], exact_fro2, "hutchinson_squared_fro(KFAC)",
+                           float(terms.std()) / math.sqrt(N)), card=smi)
+    del G, terms
+    damped = kfac + delta * IdentityLinearOperator(kfac.in_spec)
+    values, ms = repeats(lambda s: slq_logdet(damped, ncv=SLQ_NCV, num_repeats=SLQ_PROBES,
+                                              generator=gen(s)))
+    est_report("slq_logdet(KFAC + delta I)", delta=delta, ncv=SLQ_NCV, probes=SLQ_PROBES,
+               repeats=values, ms_median=ms,
+               **within_se(values, exact_logdet, "slq_logdet(KFAC + delta I)"), card=smi)
+    del kfac, damped
+
+    # ---- 2. the exact and MC GGN diagonal on ResNet-18 ---------------- #
+    dproblem = problem if DIAG_BATCH == BATCH else cifar10_resnet18(
+        batch_size=DIAG_BATCH, seed=0, device=dev)
+    dargs = (dproblem.model, dproblem.loss_fn, dproblem.params, dproblem.data)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    diag, diag_ms = timed(torch, lambda: GGNDiagonalLinearOperator(*dargs))
+    diag_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    d = flat(diag.diagonal)
+    exact = float(d.sum())
+    # the MC diagonal (1 sample a datum) from EST_REPEATS seeds: its sum
+    # within EST_SE standard errors of the exact trace, and each one within
+    # MC_REL_TOL of the exact diagonal, a gate two planted faults must fail
+    mc_errs, mc_sums, mc_ms = [], [], []
+    for s in range(EST_REPEATS):
+        mc, t = timed(torch, lambda: GGNDiagonalLinearOperator(
+            *dargs, mc_samples=1, seed=s, check_deterministic=False))
+        m = flat(mc.diagonal)
+        mc_errs.append(rel_err(m, d))
+        mc_sums.append(float(m.sum()))
+        mc_ms.append(t)
+    mc_sum = within_se(mc_sums, exact, "the MC diagonal's sum against the exact trace")
+    (X, y), = dproblem.data
+    half = GGNDiagonalLinearOperator(
+        dproblem.model, dproblem.loss_fn, dproblem.params,
+        [(X[: DIAG_BATCH // 2], y[: DIAG_BATCH // 2])], num_data=DIAG_BATCH, mc_samples=1,
+        check_deterministic=False)
+    planted = {"scale_1.5": rel_err(1.5 * m, d), "half_batch": rel_err(flat(half.diagonal), d)}
+    ggn = GGNLinearOperator(*dargs, check_deterministic=False)
+    values, ms = repeats(lambda s: hutchpp_trace(ggn, GGN_MATVECS, generator=gen(s)))
+    hpp = within_se(values, exact, "hutchpp_trace(GGN) against the diagonal's sum")
+    xd_errs = []
+
+    def xdiag_sum(s):
+        est = xdiag(ggn, GGN_MATVECS, generator=gen(200 + s))
+        xd_errs.append(rel_err(est, d))
+        return est.sum()
+
+    xd_values, xd_ms = repeats(xdiag_sum)
+    xd_sum = within_se(xd_values, exact, "xdiag(GGN)'s sum against the exact trace")
+    V = rademacher(gen(300), (EST_REPEATS, ggn.shape[1]), torch.float32).to(dev).T
+    hutch = float(hutchinson_trace_core(ggn, V))
+    slq, slq_ms = timed(torch, lambda: slq_function_trace(
+        ggn, lambda t: t, ncv=4, num_repeats=EST_REPEATS, generator=gen(300)))
+    slq_err = abs(float(slq) - hutch) / abs(hutch)
+    est_report("GGN diagonal, ResNet-18", batch=DIAG_BATCH, parameters=d.numel(),
+               exact_build_ms=diag_ms, exact_peak_gib=diag_peak,
+               mc_build_ms_median=statistics.median(mc_ms), mc1_vs_exact_rel_err=mc_errs,
+               mc_rel_tol=MC_REL_TOL, mc_planted_faults_rel_err=planted, mc_sum=mc_sum,
+               trace=exact, hutchpp=hpp, hutchpp_repeats=values, hutchpp_ms_median=ms,
+               xdiag_matvecs=GGN_MATVECS, xdiag_ms_median=xd_ms, xdiag_sum=xd_sum,
+               xdiag_vs_exact_rel_err=xd_errs, slq_identity=float(slq),
+               hutchinson_same_probes=hutch, slq_identity_rel_err=slq_err, slq_ms=slq_ms,
+               tol=SLQ_IDENTITY_TOL, card=smi)
+    if not (finite_tree(diag.diagonal) and bool((d >= 0).all())
+            and all(math.isfinite(e) for e in xd_errs) and max(mc_errs) < MC_REL_TOL
+            and min(planted.values()) > MC_REL_TOL and slq_err <= SLQ_IDENTITY_TOL):
+        raise RuntimeError(f"GGN diagonal on ResNet-18: MC vs exact {mc_errs} (limit "
+                           f"{MC_REL_TOL}; planted faults {planted} must exceed it), "
+                           f"XDiag {xd_errs}, SLQ identity vs Hutchinson {slq_err} "
+                           f"(tol {SLQ_IDENTITY_TOL}), non-negative {bool((d >= 0).all())}")
+    del diag, mc, m, half, ggn, d, V, X, y, dproblem, dargs
+    torch.cuda.empty_cache()
+
+    # ---- 3. held linearizations on ResNet-18 -------------------------- #
+    args = (problem.model, problem.loss_fn, problem.params, problem.data)
+    calls = [0]
+    hooks = [m.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
+             for m in problem.model.modules()]
+    lam = SOLVER_DAMPING
+    for label, cls in (("GGN", GGNLinearOperator), ("Hessian", HessianLinearOperator)):
+        base = cls(*args, check_deterministic=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        held, build_ms = timed(torch, base.linearized)
+        peak = (torch.cuda.max_memory_allocated(dev) - before) / 2**30
+        resident = (torch.cuda.memory_allocated(dev) - before) / 2**30
+        v = probe(base, 1)
+        calls[0] = 0
+        ref = flat(base @ v)
+        base_calls = calls[0]
+        calls[0] = 0
+        err = rel_err(flat(held @ v), ref)
+        held_calls = calls[0]
+        t_held = event_times(lambda: held @ v, torch, reps=10)
+        t_base = event_times(lambda: base @ v, torch, reps=10)
+        est_report(f"held {label}, ResNet-18", batch=BATCH, build_ms=build_ms,
+                   build_peak_gib=peak, resident_gib=resident,
+                   held_gib=held.held_bytes / 2**30, matvec_rel_err=err, tol=HELD_TOL,
+                   module_calls_base_matvec=base_calls, module_calls_held_matvec=held_calls,
+                   held_ms_median_of_10=statistics.median(t_held), held_ms_min=min(t_held),
+                   held_ms_max=max(t_held), base_ms_median_of_10=statistics.median(t_base),
+                   base_ms_min=min(t_base), base_ms_max=max(t_base), card=smi)
+        if not (err <= HELD_TOL and held_calls == 0 and base_calls > 0):
+            raise RuntimeError(f"held {label}: matvec vs base {err} (tol {HELD_TOL}), module "
+                               f"calls {held_calls} (base {base_calls})")
+        device_profile(torch, f"ResNet-18 held {label} matvec", lambda: held @ v)
+        device_profile(torch, f"ResNet-18 base {label} matvec", lambda: base @ v)
+        if label == "GGN":
+            b = probe(base, 2)
+            runs = {}
+            for which, op in (("held", held), ("base", base), ("base again", base)):
+                inv = CGInverseLinearOperator(op + lam * IdentityLinearOperator(op.in_spec),
+                                              maxiter=SOLVER_ITERS, tol=0.0, atol=0.0)
+                _, solve_ms = timed(torch, lambda: inv @ b)
+                info = inv.last_info
+                runs[which] = (info["residual_history"][:, 0].double(),
+                               solve_ms / info["iterations"])
+
+            def drift(a: str, b: str):
+                return ((runs[a][0] - runs[b][0]).abs() / runs[b][0]).tolist()
+
+            held_drift, base_drift = drift("held", "base"), drift("base again", "base")
+            prefix = next((i for i, d in enumerate(base_drift) if d > CG_REPRO), len(base_drift))
+            worst = max(held_drift[:prefix], default=math.inf)
+            est_report(f"CG on held GGN + {lam} I, ResNet-18", iterations=SOLVER_ITERS,
+                       held_ms_per_iteration=runs["held"][1],
+                       base_ms_per_iteration=runs["base"][1],
+                       reproducible_prefix=prefix, held_vs_base_on_prefix=worst, tol=HELD_CG_TOL,
+                       held_vs_base_all=max(held_drift), base_vs_base_all=max(base_drift),
+                       held_vs_base=held_drift, base_vs_base=base_drift,
+                       held_residuals=runs["held"][0].tolist(), card=smi)
+            if not (prefix >= CG_MIN_PREFIX and worst <= HELD_CG_TOL):
+                raise RuntimeError(f"CG on the held GGN: residual histories differ by {worst} "
+                                   f"(tol {HELD_CG_TOL}) over the first {prefix} iterations, "
+                                   f"where the base reproduces itself to {CG_REPRO} (at least "
+                                   f"{CG_MIN_PREFIX} required)")
+        del base, held
+    for h in hooks:
+        h.remove()
+    del problem, args, kargs
+    torch.cuda.empty_cache()
+
+    # ---- 4. GPT-2 small: the MC diagonal (flash kernels), held GGN ----- #
+    config = GPT_CONFIG or GPTConfig()
+    flash = shakespeare_nanogpt(GPT_BATCH, config, seed=0, device=dev, attention_impl="flash")
+    GGNDiagonalLinearOperator._check_vmap_compatible(as_model_fn(flash.model), flash.params,
+                                                     flash.data)
+    for n in fa.launches:
+        fa.launches[n] = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    d_flash, flash_ms = timed(torch, lambda: GGNDiagonalLinearOperator(
+        flash.model, flash.loss_fn, flash.params, flash.data, mc_samples=1,
+        check_deterministic=False))
+    flash_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    flash_launches = dict(fa.launches)
+    if min(flash_launches.values()) < config.n_layer:
+        raise RuntimeError(f"the flash GPT's MC diagonal ran a flash kernel fewer than "
+                           f"{config.n_layer} times: {flash_launches}")
+    einsum = shakespeare_nanogpt(GPT_BATCH, config, seed=0, device=dev, attention_impl="einsum")
+    d_einsum, einsum_ms = timed(torch, lambda: GGNDiagonalLinearOperator(
+        einsum.model, einsum.loss_fn, einsum.params, einsum.data, mc_samples=1,
+        check_deterministic=False))
+    err = rel_err(flat(d_flash.diagonal), flat(d_einsum.diagonal))
+    est_report("MC GGN diagonal, GPT-2 small", batch=GPT_BATCH, T=config.block_size,
+               mc_samples=1, flash_build_ms=flash_ms, flash_peak_gib=flash_peak,
+               flash_launches=flash_launches, einsum_build_ms=einsum_ms,
+               flash_vs_einsum_rel_err=err, tol=DIAG_TOL, card=smi)
+    if not (err <= DIAG_TOL and finite_tree(d_flash.diagonal)):
+        raise RuntimeError(f"the flash GPT's MC diagonal against the einsum GPT's: {err} "
+                           f"(tol {DIAG_TOL})")
+    del d_flash, d_einsum
+    torch.cuda.empty_cache()
+
+    base = GGNLinearOperator(einsum.model, einsum.loss_fn, einsum.params, einsum.data,
+                             check_deterministic=False)
+    v = probe(base, 5)
+    ref = flat(base @ v)
+    t_base = event_times(lambda: base @ v, torch, reps=10)
+    for label, remat in (("remat=None", None),
+                         (f"remat=save_smaller_than({REMAT_LIMIT})", save_smaller_than(REMAT_LIMIT))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        held, build_ms = timed(torch, lambda: base.linearized(remat=remat))
+        build_peak = (torch.cuda.max_memory_allocated(dev) - before) / 2**30
+        resident = (torch.cuda.memory_allocated(dev) - before) / 2**30
+        torch.cuda.reset_peak_memory_stats(dev)
+        err = rel_err(flat(held @ v), ref)
+        matvec_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        t_held = event_times(lambda: held @ v, torch, reps=10)
+        est_report(f"held GGN, GPT-2 small (einsum), {label}", batch=GPT_BATCH,
+                   build_ms=build_ms, build_peak_gib=build_peak, resident_gib=resident,
+                   held_gib=held.held_bytes / 2**30, matvec_peak_gib=matvec_peak,
+                   matvec_rel_err=err, tol=HELD_TOL,
+                   held_ms_median_of_10=statistics.median(t_held), held_ms_min=min(t_held),
+                   held_ms_max=max(t_held), base_ms_median_of_10=statistics.median(t_base),
+                   base_ms_min=min(t_base), base_ms_max=max(t_base), card=smi)
+        if not err <= HELD_TOL:
+            raise RuntimeError(f"held GPT GGN ({label}): matvec vs base {err} (tol {HELD_TOL})")
+        if remat is None:
+            device_profile(torch, "GPT held GGN matvec", lambda: held @ v)
+        del held
+    del base, einsum
+    try:
+        GGNLinearOperator(flash.model, flash.loss_fn, flash.params, flash.data,
+                          check_deterministic=False).linearized()
+    except NotImplementedError as err:
+        if str(err) != FORWARD_MODE_REFUSAL:
+            raise RuntimeError(f"the flash GPT's linearized() raised another error: {err}") from err
+        est_report("flash GPT linearized() refused", message=str(err))
+    else:
+        raise RuntimeError("the flash GPT's linearized() did not refuse forward mode")
+    del flash
+    torch.cuda.empty_cache()
+
+    worst = estimators_card_against_cpu(torch, dev)
+    est_report("card vs CPU", problems=["narrow ResNet", "tiny MLP"], dtype="float64",
+               items=ESTIMATOR_ITEMS, worst_relative_error=worst, tol=CARD_CPU_TOL)
+    return {
+        "conv_input_covariance": conv_launches,
+        **{f"flash_attention_{n}": flash_launches[n] for n in FLASH_KERNELS},
+    }
+
+
+ESTIMATOR_ITEMS = ["GGN diagonal", "held GGN", "held Hessian", "hutchinson_trace",
+                   "hutchpp_trace", "xtrace", "hutchinson_diag", "xdiag",
+                   "hutchinson_squared_fro", "slq_logdet"]
+
+
+def estimators_card_against_cpu(torch, dev) -> float:
+    """The exact GGN diagonal, the held GGN and Hessian matvecs and each
+    estimator's core on fixed probes (on the GGN + 0.1 I), by the same code
+    on the card and on the CPU, float64, on the narrow ResNet and the tiny
+    MLP; returns the worst relative error (gate ``CARD_CPU_TOL``)."""
+    from curvlinops_tpu_torch import (
+        GGNDiagonalLinearOperator,
+        GGNLinearOperator,
+        HessianLinearOperator,
+        IdentityLinearOperator,
+    )
+    from curvlinops_tpu_torch.estimators import diagonal, norm, slq, trace
+    from curvlinops_tpu_torch.models.mlp import tiny_mlp_problem
+    from curvlinops_tpu_torch.models.resnet import narrow_resnet_problem
+
+    def results(problem, P):
+        args = (problem.model, problem.loss_fn, problem.params, problem.data)
+        G = GGNLinearOperator(*args, check_deterministic=False)
+        A = G + 0.1 * IdentityLinearOperator(G.in_spec)
+        V = P[:, :2]
+        return {
+            "GGN diagonal": torch.cat([t.reshape(-1) for t in torch.utils._pytree.tree_leaves(
+                GGNDiagonalLinearOperator(*args).diagonal)]),
+            "held GGN": G.linearized() @ V,
+            "held Hessian": HessianLinearOperator(*args, check_deterministic=False).linearized() @ V,
+            "hutchinson_trace": trace.hutchinson_trace_core(A, P),
+            "hutchpp_trace": trace.hutchpp_trace_core(A, P[:, :3], P[:, 3:6]),
+            "xtrace": trace.xtrace_core(A, P[:, :4]),
+            "hutchinson_diag": diagonal.hutchinson_diag_core(A, P),
+            "xdiag": diagonal.xdiag_core(A, P[:, :4]),
+            "hutchinson_squared_fro": norm.hutchinson_squared_fro_core(A, P),
+            "slq_logdet": slq.slq_function_trace_core(A, torch.log, P[:, :4], 6),
+        }
+
+    worst = 0.0
+    for name, make in (("narrow ResNet", narrow_resnet_problem), ("tiny MLP", tiny_mlp_problem)):
+        on_cpu, on_card = make(device="cpu"), make(device=dev)
+        n = sum(t.numel() for t in torch.utils._pytree.tree_leaves(on_cpu.params))
+        bits = torch.randint(0, 2, (n, 8), generator=torch.Generator().manual_seed(9))
+        P = (2 * bits - 1).double()
+        a, b = results(on_cpu, P), results(on_card, P.to(dev))
+        for item in ESTIMATOR_ITEMS:
+            err = rel_err(b[item].cpu(), a[item])
+            worst = max(worst, err)
+            if not err <= CARD_CPU_TOL:
+                raise RuntimeError(f"{name} {item}: card vs CPU rel err {err} (tol {CARD_CPU_TOL})")
     return worst
 
 

@@ -15,7 +15,12 @@ built on them (CG, MINRES, LSMR, Neumann), the KFAC collector, factor computatio
 damped inverses (``kfac/randomized.py`` for ``rank=``) and matvec, EKFAC
 (``kfac/ekfac.py``) and KFOC (``kfac/kfoc.py``), ``risk.py``'s ``EmpiricalRiskOperator`` and
 the GGN/MC-Fisher, Hessian, empirical-Fisher and (transposed) Jacobian
-operators built on it, and the dense oracles of :mod:`examples`. The TPU
+operators built on it, their held linearizations (``op.linearized()``,
+:mod:`curvature.held`), the exact and Monte-Carlo GGN diagonal
+(:mod:`curvature.ggn_diagonal`), the stochastic estimators (Hutchinson,
+Hutch++ and XTrace traces, Hutchinson and XDiag diagonals, the squared
+Frobenius norm, stochastic Lanczos quadrature for ``tr(f(A))`` and the
+log-determinant; :mod:`estimators`), and the dense oracles of :mod:`examples`. The TPU
 kernels on those paths are hand-written CUDA kernels for Hopper: the conv
 input covariance (``kfac/kernels.py``, ``kfac/csrc/``) and causal flash
 attention, forward and backward (``models/flash_attention.py``,
@@ -25,12 +30,18 @@ attention, forward and backward (``models/flash_attention.py``,
 from curvlinops_tpu_torch import examples
 from curvlinops_tpu_torch.curvature.ef import EFLinearOperator
 from curvlinops_tpu_torch.curvature.ggn import GGNLinearOperator
+from curvlinops_tpu_torch.curvature.ggn_diagonal import GGNDiagonalLinearOperator
+from curvlinops_tpu_torch.curvature.held import HeldLinearizationOperator
 from curvlinops_tpu_torch.curvature.hessian import HessianLinearOperator
 from curvlinops_tpu_torch.curvature.jacobian import (
     JacobianLinearOperator,
     TransposedJacobianLinearOperator,
 )
 from curvlinops_tpu_torch.curvature.loss_hessian import FisherType, KFACType
+from curvlinops_tpu_torch.estimators.diagonal import hutchinson_diag, xdiag
+from curvlinops_tpu_torch.estimators.norm import hutchinson_squared_fro
+from curvlinops_tpu_torch.estimators.slq import slq_function_trace, slq_logdet
+from curvlinops_tpu_torch.estimators.trace import hutchinson_trace, hutchpp_trace, xtrace
 from curvlinops_tpu_torch.kfac.ekfac import EKFACLinearOperator
 from curvlinops_tpu_torch.kfac.kfoc import KFOCLinearOperator
 from curvlinops_tpu_torch.kfac.operator import KFACLinearOperator
@@ -80,6 +91,8 @@ __all__ = [
     "EFLinearOperator",
     "JacobianLinearOperator",
     "TransposedJacobianLinearOperator",
+    "HeldLinearizationOperator",
+    "GGNDiagonalLinearOperator",
     "FisherType",
     "KFACType",
     "KFACLinearOperator",
@@ -112,6 +125,15 @@ __all__ = [
     "LanczosApproximateSpectrumCached",
     "LanczosApproximateLogSpectrumCached",
     "topk_eigenpairs",
+    # estimators
+    "hutchinson_trace",
+    "hutchpp_trace",
+    "xtrace",
+    "hutchinson_diag",
+    "xdiag",
+    "hutchinson_squared_fro",
+    "slq_function_trace",
+    "slq_logdet",
     # adapters
     "make_functional_call",
     "GPTConfig",

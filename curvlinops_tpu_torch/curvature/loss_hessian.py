@@ -54,14 +54,16 @@ def mean_rescale(loss_fn, y: torch.Tensor):
     The closed-form grad outputs count one loss term per target entry, while
     the CE mean divides by the non-ignored count; this linear factor converts
     a batch's contribution to the masked-loss convention (exactly 1 when no
-    target is ignored). Returned as a tensor on ``y``'s device, so no host
-    synchronisation happens.
+    target is ignored). Returned as a float64 tensor on ``y``'s device, so
+    no host synchronisation happens and a float64 product keeps its digits
+    (the JAX package's is float32); a 0-dim tensor leaves the dtype of the
+    tensors it scales unchanged.
     """
     if not (isinstance(loss_fn, CrossEntropyLoss) and loss_fn.reduction == "mean"):
         return 1.0
     total = float(y.numel()) if y.ndim else 1.0
     count = (y != loss_fn.ignore_index).sum().clamp(min=1)
-    return total / count.to(torch.float32)
+    return total / count.to(torch.float64)
 
 
 def _feature_constant(loss_fn, datum_shape: tuple) -> float:

@@ -24,7 +24,11 @@ Differences from the JAX package:
 - Cross-entropy targets are checked on the host before any loss is
   computed: on a GPU an out-of-range class index is a device-side assert
   that ends the CUDA context.
-- No ``mesh=``/``data_axis=`` (data parallelism) and no ``linearized()``.
+- :meth:`EmpiricalRiskOperator.linearized` holds each batch's model
+  linearization as a traced graph whose primal values are evaluated once
+  (:mod:`curvlinops_tpu_torch.curvature.held`), where the JAX package holds
+  ``jax.linearize``'s residuals.
+- No ``mesh=``/``data_axis=`` (data parallelism).
 """
 
 from __future__ import annotations
@@ -229,6 +233,27 @@ class EmpiricalRiskOperator(LinearOperator):
         return {"sum": 1.0, "mean": self._batch_size_fn(X) / self._N_data}[
             self._loss_fn.reduction
         ]
+
+    def linearized(self, remat=None) -> LinearOperator:
+        """Hold the per-batch model linearizations on the device.
+
+        Returns an operator computing the same matrix (the MC Fisher with the
+        same samples) whose products run no primal forward (and, for the
+        Hessian, no primal backward): the primal values the tangents need
+        are evaluated once, here. The trade for iterative work against fixed
+        data, at the memory cost of each batch's residuals. See
+        :class:`curvlinops_tpu_torch.curvature.held.HeldLinearizationOperator`.
+
+        Args:
+            remat: ``None`` (default) holds every residual; ``True`` holds
+                only the parameters and the data and recomputes the rest
+                inside each product; a selective-checkpoint policy
+                (:func:`curvlinops_tpu_torch.curvature.held.save_smaller_than`)
+                chooses which values to hold.
+        """
+        from curvlinops_tpu_torch.curvature.held import HeldLinearizationOperator
+
+        return HeldLinearizationOperator(self, remat=remat)
 
     # ---- the hot path: accumulated per-batch matmat --------------------- #
     def _make_batch_matmat(self) -> Callable:

@@ -2,9 +2,11 @@
 
 PyTorch counterpart of ``curvlinops_tpu/solvers/lanczos.py``:
 
-- :func:`fast_lanczos` runs the recurrence without reorthogonalization for
-  a fixed number of steps; the small tridiagonal eigenproblem is a dense
-  ``torch.linalg.eigh``.
+- :func:`fast_lanczos_columns` runs the recurrence without
+  reorthogonalization for a fixed number of steps on the columns of a
+  block, one operator matmat per step (stochastic Lanczos quadrature's
+  probes); the small tridiagonal eigenproblems are one batched
+  ``torch.linalg.eigh``. :func:`fast_lanczos` is its one-column case.
 - Spectral boundaries come from a Lanczos run with full
   reorthogonalization (:func:`lanczos_extreme_eigenvalues`).
 - Densities are one broadcast sum of Gaussian bumps.
@@ -29,14 +31,21 @@ import torch
 from curvlinops_tpu_torch.ops.base import LinearOperator
 
 
-def flat_matvec(A) -> Callable[[torch.Tensor], torch.Tensor]:
-    """``mv(v) == A @ v`` on flat ``[dim]`` vectors (a ``LinearOperator``
+def flat_matmat(A) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``mm(V) == A @ V`` on flat ``[dim, K]`` matrices (a ``LinearOperator``
     through its own tree edges, anything else through ``@``)."""
     if isinstance(A, LinearOperator):
         ravel_out, _ = A._edge("out")
         _, unravel_in = A._edge("in")
-        return lambda v: ravel_out(A._matmat(unravel_in(v[:, None])))[:, 0]
-    return lambda v: A @ v
+        return lambda V: ravel_out(A._matmat(unravel_in(V)))
+    return lambda V: A @ V
+
+
+def flat_matvec(A) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``mv(v) == A @ v`` on flat ``[dim]`` vectors (:func:`flat_matmat` on
+    one column)."""
+    mm = flat_matmat(A)
+    return lambda v: mm(v[:, None])[:, 0]
 
 
 def start_vector(A, generator: torch.Generator | None, shape: tuple) -> torch.Tensor:
@@ -51,25 +60,38 @@ def _tridiagonal(alphas: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
     return torch.diag(alphas) + torch.diag(betas, 1) + torch.diag(betas, -1)
 
 
-def _fast_lanczos_loop(mv: Callable, v: torch.Tensor, ncv: int):
-    """The recurrence without reorthogonalization from start vector ``v``:
-    ``ncv`` operator applications, then the tridiagonal's ``eigh``."""
-    tiny = torch.finfo(v.dtype).tiny
-    v = v / torch.linalg.vector_norm(v)
-    v_prev = torch.zeros_like(v)
-    alphas = torch.zeros(ncv, dtype=v.dtype, device=v.device)
-    betas = torch.zeros(max(ncv - 1, 1), dtype=v.dtype, device=v.device)
-    beta = torch.zeros((), dtype=v.dtype, device=v.device)
+def fast_lanczos_columns(A, V: torch.Tensor, ncv: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Lanczos without reorthogonalization on every column of ``V``
+    ``[dim, R]`` at once, ``ncv`` steps: each step is one operator matmat
+    over the ``R`` columns, and the ``R`` tridiagonals are eigendecomposed in
+    one batched ``eigh`` in float64 (``[R, ncv, ncv]``: a float32 ``eigh``
+    would blur the small Ritz values by the largest one's roundoff), its
+    results cast back to ``V``'s dtype.
+
+    Returns:
+        ``(evals [R, ncv], evecs [R, ncv, ncv])``.
+    """
+    mm = flat_matmat(A)
+    tiny = torch.finfo(V.dtype).tiny
+    R = V.shape[1]
+    V = V / torch.linalg.vector_norm(V, dim=0)
+    V_prev = torch.zeros_like(V)
+    alphas = torch.zeros((R, ncv), dtype=V.dtype, device=V.device)
+    betas = torch.zeros((R, max(ncv - 1, 1)), dtype=V.dtype, device=V.device)
+    beta = torch.zeros(R, dtype=V.dtype, device=V.device)
     for m in range(ncv):
-        v_next = mv(v) - beta * v_prev
-        alpha = torch.dot(v_next, v)
-        alphas[m] = alpha
-        v_next = v_next - alpha * v
-        beta = torch.linalg.vector_norm(v_next)
+        W = mm(V) - beta * V_prev
+        alpha = (W * V).sum(0)
+        alphas[:, m] = alpha
+        W = W - alpha * V
+        beta = torch.linalg.vector_norm(W, dim=0)
         if m < ncv - 1:
-            betas[m] = beta
-        v_prev, v = v, v_next / torch.clamp(beta, min=tiny)
-    return torch.linalg.eigh(_tridiagonal(alphas, betas[: ncv - 1]))
+            betas[:, m] = beta
+        V_prev, V = V, W / torch.clamp(beta, min=tiny)
+    off = betas[:, : ncv - 1]
+    T = torch.diag_embed(alphas) + torch.diag_embed(off, 1) + torch.diag_embed(off, -1)
+    evals, evecs = torch.linalg.eigh(T.double())
+    return evals.to(V.dtype), evecs.to(V.dtype)
 
 
 def fast_lanczos(
@@ -87,7 +109,8 @@ def fast_lanczos(
         ``(evals [ncv], evecs [ncv, ncv])`` of the tridiagonal matrix.
     """
     v = v0 if v0 is not None else start_vector(A, generator, (A.shape[1],))
-    return _fast_lanczos_loop(flat_matvec(A), v, ncv)
+    evals, evecs = fast_lanczos_columns(A, v[:, None], ncv)
+    return evals[0], evecs[0]
 
 
 def reorthogonalized_lanczos(

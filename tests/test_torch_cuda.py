@@ -8,7 +8,9 @@ multi-batch accumulation, and the flash GPT's refusal of forward mode; and
 the solvers (CG, MINRES, LSMR, fast Lanczos, LOBPCG) on the card against
 the CPU, and the Neumann series' divergence on the card; the rest of the
 KFAC family (REDUCE, the rank-r inverse, EKFAC, KFOC) on the card against
-the CPU, and the randomized range finder under a user's ``allow_tf32``.
+the CPU, and the randomized range finder under a user's ``allow_tf32``; each
+estimator's core, the exact GGN diagonal and the held linearizations on the
+card.
 
 These tests need the card: they skip without one. The card's machine has no
 JAX, so this file imports only the port, and runs there without the suite's
@@ -574,3 +576,81 @@ def test_randomized_range_finder_ignores_user_tf32(cuda):
     (lam0, U0, t0), (lam1, U1, t1) = out[False], out[True]
     assert rel_err(lam1, lam0) < 1e-6 and rel_err(U1 @ U1.T, U0 @ U0.T) < 1e-6
     assert float((U1.T @ U1 - torch.eye(64, device=cuda)).abs().max()) < 1e-4
+
+
+# ---------------------------------------------------------------------- #
+# the estimators, the GGN diagonal and the held linearizations on the card
+# ---------------------------------------------------------------------- #
+def _estimate(name: str, A, P: torch.Tensor) -> torch.Tensor:
+    """One estimator's core on ``A`` and the probe columns of ``P``."""
+    from curvlinops_tpu_torch.estimators import diagonal, norm, slq, trace
+
+    return {
+        "hutchinson_trace": lambda: trace.hutchinson_trace_core(A, P),
+        "hutchpp_trace": lambda: trace.hutchpp_trace_core(A, P[:, :3], P[:, 3:6]),
+        "xtrace": lambda: trace.xtrace_core(A, P[:, :4]),
+        "hutchinson_diag": lambda: diagonal.hutchinson_diag_core(A, P),
+        "xdiag": lambda: diagonal.xdiag_core(A, P[:, :4]),
+        "hutchinson_squared_fro": lambda: norm.hutchinson_squared_fro_core(A, P),
+        "slq_logdet": lambda: slq.slq_function_trace_core(A, torch.log, P[:, :4], 6),
+    }[name]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name",
+    ["hutchinson_trace", "hutchpp_trace", "xtrace", "hutchinson_diag", "xdiag",
+     "hutchinson_squared_fro", "slq_logdet"],
+)
+def test_estimator_core_card_matches_cpu(cuda, name):
+    """Each estimator's core on the tiny MLP's GGN + 0.1 I (float64), the
+    same +-1 probes: the card against the CPU to 1e-10 relative."""
+    from curvlinops_tpu_torch import IdentityLinearOperator
+
+    on = {}
+    for dev in ("cpu", cuda):
+        G = GGNLinearOperator(*_args(tmlp.tiny_mlp_problem(device=dev)))
+        bits = torch.randint(0, 2, (G.shape[1], 8), generator=torch.Generator().manual_seed(0))
+        P = (2 * bits - 1).double().to(dev)
+        out = _estimate(name, G + 0.1 * IdentityLinearOperator(G.in_spec), P)
+        assert out.device.type == torch.device(dev).type
+        on[str(dev)] = out.cpu()
+    assert rel_err(on[str(cuda)], on["cpu"]) < 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["ggn", "mc", "hessian", "ef"])
+def test_held_matvec_on_card(cuda, op):
+    """The held operator on the narrow ResNet (float64) on the card: its
+    matvec equals the base's to 1e-10 and calls no module."""
+    problem = tresnet.narrow_resnet_problem(device=cuda)
+    cls = {"ggn": GGNLinearOperator, "mc": GGNLinearOperator,
+           "hessian": HessianLinearOperator, "ef": EFLinearOperator}[op]
+    kw = {"mc_samples": 2} if op == "mc" else {}
+    base = cls(*_args(problem), check_deterministic=False, **kw)
+    held = base.linearized()
+    calls = []
+    hooks = [m.register_forward_hook(lambda *_: calls.append(1)) for m in problem.model.modules()]
+    V = torch.randn((base.shape[1], 2), generator=torch.Generator().manual_seed(0),
+                    dtype=torch.float64).to(cuda)
+    out = held @ V
+    for h in hooks:
+        h.remove()
+    assert out.device == V.device and not calls
+    assert rel_err(out, base @ V) < 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["mlp", "resnet"])
+def test_ggn_diagonal_card_matches_cpu(cuda, model):
+    """The exact GGN diagonal (float64) on the card against the CPU, 1e-10."""
+    from curvlinops_tpu_torch import GGNDiagonalLinearOperator
+
+    make = tmlp.tiny_mlp_problem if model == "mlp" else tresnet.narrow_resnet_problem
+    on = {}
+    for dev in ("cpu", cuda):
+        diag = GGNDiagonalLinearOperator(*_args(make(device=dev))).diagonal
+        leaves = torch.utils._pytree.tree_leaves(diag)
+        assert all(t.device.type == torch.device(dev).type for t in leaves)
+        on[str(dev)] = torch.cat([t.reshape(-1).cpu() for t in leaves])
+    assert rel_err(on[str(cuda)], on["cpu"]) < 1e-10
