@@ -93,7 +93,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     model with ``remat=None`` and ``save_smaller_than`` (1e-5, memory),
     the flash model's refusal of ``linearized()``; and the card against
     the CPU in float64;
-11. prints a JSON line of kernel results and, last, a JSON status line.
+11. the transformer family (``transformer_phases``, one JSON line per item),
+    float32: the scan-stacked flash GPT-2 small (batch 4, T = 1024) with
+    KFAC over the ``wte``/``wpe`` embeddings, its logits against the
+    unrolled GPT with the same weights, the three flash kernels against
+    their plain versions on a middle layer's ``q, k, v``, the main path (the
+    KFAC MC factor pass with its determinism probe, cold and warm; the flash
+    launches counted from 0 over it, at least one per layer each; its
+    factors slice by slice against the unrolled build's), the heuristic,
+    exact and rank-256 (``"slreigh"``) damped inverses applied to the
+    gradient and the matvec by CUDA events, EKFAC by phase and its matvec,
+    the busy share and peak memory; the fused GPT-2 small (SDPA's pinned
+    math backend; every backend's outcome under ``torch.func.jvp``) with
+    its logits, GGN and Hessian matvecs against the einsum GPT's; ViT-S/4
+    on CIFAR-10 at batch 512, unrolled and stacked (logits, KFAC build,
+    matvec, exact inverse, GGN matvec; the patch conv rejected by the conv
+    kernel's gate, so no conv launch); KFAC and EKFAC on the card against
+    the CPU in float64 (tiny stacked GPT with embeddings, tiny stacked ViT);
+12. prints a JSON line of kernel results and, last, a JSON status line.
 
 Each kernel's bound is the larger of its bytes (each input read once, each
 output written once) at 3.35 TB/s and its float32 products at the card's
@@ -116,6 +133,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -165,6 +183,16 @@ def event_times(fn, torch, reps: int = 20) -> list[float]:
     return times
 
 
+def event_ms(torch, fn) -> tuple:
+    """``(result, ms)`` of one call of ``fn``, timed by CUDA events."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
 def time_ms(fn, torch, reps: int = 20) -> float:
     """Median device time of ``fn`` in ms (:func:`event_times`)."""
     return statistics.median(event_times(fn, torch, reps))
@@ -177,10 +205,11 @@ def alternated_ms(plain, kernel, torch) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def device_profile(torch, label: str, fn) -> None:
+def device_profile(torch, label: str, fn) -> float:
     """One warm run of ``fn`` under ``torch.profiler``: wall and device ms,
     busy share (device over wall; the profiler inflates wall time, not
-    device time), the largest device items by name and the port's kernels."""
+    device time), the largest device items by name and the port's kernels.
+    Returns the busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -211,6 +240,7 @@ def device_profile(torch, label: str, fn) -> None:
     for rank, (name, (ms, n)) in enumerate(ranked):
         if rank < 8 or any(k in name for k in PORT_KERNELS):
             print(f"    {ms:.3f} ms x{n} {name[:110]}")
+    return device_ms / wall_ms
 
 
 def _main_kernel(mangled: str) -> str | None:
@@ -308,11 +338,14 @@ def main() -> None:
     marks.append(time.perf_counter())
     phase_launches = estimator_phases(torch, dev, smi)
     marks.append(time.perf_counter())
+    stacked_launches = transformer_phases(torch, dev, smi)
+    marks.append(time.perf_counter())
     for entry in entries:
         entry["launches"] += phase_launches[entry["name"]]
+        entry["launches"] += stacked_launches.get(entry["name"], 0)
     print("phase seconds: ResNet-18 kernel and KFAC {:.1f}, GPT kernels and KFAC {:.1f}, "
           "curvature operators {:.1f}, solvers {:.1f}, KFAC family {:.1f}, estimators, "
-          "GGN diagonal and held linearizations {:.1f}".format(
+          "GGN diagonal and held linearizations {:.1f}, transformer family {:.1f}".format(
               *(b - a for a, b in zip(marks, marks[1:]))))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
@@ -674,11 +707,7 @@ def gpt_phases(torch, dev, fa) -> list[dict]:
     model, (X, _) = problem.model, problem.data[0]
     B, T = X.shape
     H, hd = config.n_head, config.n_embd // config.n_head
-    with torch.no_grad():
-        qkv = model.h0.attn_qkv(model.h0.ln1(model.wte[X] + model.wpe[:T]))
-    q, k, v = (
-        t.reshape(B, T, H, hd).transpose(1, 2).contiguous() for t in qkv.split(config.n_embd, -1)
-    )
+    q, k, v = layer_qkv(torch, model, X, 0)
     do = torch.randn(q.shape, generator=torch.Generator(dev).manual_seed(1), device=dev)
     kw = dict(causal=True, sm_scale=hd**-0.5)
     max_abs = dict.fromkeys(FLASH_KERNELS, 0.0)
@@ -749,7 +778,7 @@ def gpt_phases(torch, dev, fa) -> list[dict]:
     pair_bound = bounds["bwd_dkv"][0] + bounds["bwd_dq"][0]
     print(f"  backward pair bwd_dkv + bwd_dq {pair_ms:.4f} ms, SDPA backward {lib_bwd:.4f} ms, "
           f"pair / SDPA {pair_ms / lib_bwd:.3f}, bound {pair_bound:.4f} ms")
-    del qkv, q, k, v, do, o_ref, lse_ref, di, args, ql, kl, vl, o_lib
+    del q, k, v, do, o_ref, lse_ref, di, args, ql, kl, vl, o_lib
 
     # ---- the main path: KFAC on the flash GPT ------------------------- #
     for n in fa.launches:
@@ -2113,6 +2142,316 @@ def estimators_card_against_cpu(torch, dev) -> float:
             worst = max(worst, err)
             if not err <= CARD_CPU_TOL:
                 raise RuntimeError(f"{name} {item}: card vs CPU rel err {err} (tol {CARD_CPU_TOL})")
+    return worst
+
+
+# ---------------------------------------------------------------------- #
+# the transformer family: the stacked flash GPT with embeddings, fused
+# attention, the ViT
+# ---------------------------------------------------------------------- #
+VIT_BATCH = 512  # ViT-S/4 on CIFAR-10
+VIT_CONFIG = None  # None: ViTConfig(), ViT-S/4 at full width and depth
+STACK_TOL = 1e-5  # stacked against unrolled logits, relative
+STACK_RANK = 256  # the stacked GPT's rank-r inverse ("slreigh")
+FUSED_TOL = 1e-4  # the fused GPT's GGN and Hessian matvecs against the einsum GPT's
+
+
+def tf_report(item: str, **fields) -> None:
+    """One JSON line of the transformer phase."""
+    print(json.dumps({"transformer_phase": item, **fields}))
+
+
+def layer_qkv(torch, model, X, layer: int) -> tuple:
+    """``q, k, v [B, H, T, hd]`` of one layer of a GPT's forward on ``X``
+    (unrolled or stacked), taken by a hook on that layer's ``attn_qkv``."""
+    seen = {}
+    stacked = model.scan_blocks
+    qkv = model.h.attn_qkv if stacked else model.get_submodule(f"h{layer}.attn_qkv")
+
+    def hook(mod, args, out):
+        if not stacked or args[1] == layer:
+            seen["qkv"] = out.detach()
+
+    handle = qkv.register_forward_hook(hook)
+    with torch.no_grad():
+        model(X)
+    handle.remove()
+    cfg = model.config
+    B, T = X.shape
+    H, hd = cfg.n_head, cfg.n_embd // cfg.n_head
+    return tuple(t.reshape(B, T, H, hd).transpose(1, 2).contiguous()
+                 for t in seen["qkv"].split(cfg.n_embd, -1))
+
+
+def transformer_phases(torch, dev, smi: str) -> dict:
+    """The stacked flash GPT-2 small with embedding KFAC and EKFAC (the main
+    path: its KFAC factor pass, flash launches counted from 0 over it), the
+    fused GPT's curvature through SDPA under forward mode, ViT-S/4 on
+    CIFAR-10, and the card against the CPU in float64; float32, TF32 off,
+    every gate fatal. Returns each kernel's launches in the main path."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from curvlinops_tpu_torch import (
+        EKFACLinearOperator,
+        GGNLinearOperator,
+        HessianLinearOperator,
+        KFACLinearOperator,
+    )
+    from curvlinops_tpu_torch.kfac import kernels
+    from curvlinops_tpu_torch.kfac.ekfac import EKFACComputer
+    from curvlinops_tpu_torch.models import flash_attention as fa
+    from curvlinops_tpu_torch.models import gpt as tgpt
+    from curvlinops_tpu_torch.models.vit import ViTConfig, cifar10_vit
+    from curvlinops_tpu_torch.utils.flatten import tree_randn_like
+
+    config = GPT_CONFIG or tgpt.GPTConfig()
+    L = config.n_layer
+
+    def gpt(**kw):
+        return tgpt.shakespeare_nanogpt(GPT_BATCH, config, seed=0, device=dev, **kw)
+
+    # ---- the stacked flash GPT against the unrolled one ----------------- #
+    t0 = time.perf_counter()
+    stacked = gpt(attention_impl="flash", scan_blocks=True, include_embeddings=True)
+    unrolled = gpt(attention_impl="flash", include_embeddings=True)
+    torch.cuda.synchronize()
+    X = stacked.data[0][0]
+    with torch.no_grad():
+        logits_err = rel_err(stacked.model(X), unrolled.model(X))
+    tf_report("stacked flash GPT-2 small logits vs unrolled", batch=GPT_BATCH,
+              T=config.block_size, layers=L, kfac_groups_include_embeddings=True,
+              build_s=time.perf_counter() - t0, rel_err=logits_err, tol=STACK_TOL, card=smi)
+    if not logits_err < STACK_TOL:
+        raise RuntimeError(f"stacked vs unrolled GPT logits: {logits_err} (tol {STACK_TOL})")
+
+    # ---- the flash kernels on a middle layer of the stacked forward ----- #
+    q, k, v = layer_qkv(torch, stacked.model, X, L // 2)
+    hd = q.shape[-1]
+    kw = dict(causal=True, sm_scale=hd**-0.5)
+    do = torch.randn(q.shape, generator=torch.Generator(dev).manual_seed(2), device=dev)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, **kw)
+    di = (o_ref * do).sum(-1)
+    args = (q, k, v, do, lse_ref, di)
+    held = {
+        "fwd o": (fa.flash_attention_fwd_kernel(q, k, v, **kw)[0], o_ref),
+        "bwd_dkv dk": (fa.flash_attention_bwd_dkv_kernel(*args, **kw)[0],
+                       fa.flash_attention_bwd_dkv_plain(*args, **kw)[0]),
+        "bwd_dq dq": (fa.flash_attention_bwd_dq_kernel(*args, **kw),
+                      fa.flash_attention_bwd_dq_plain(*args, **kw)),
+    }
+    errs = {name: rel_err(a, b) for name, (a, b) in held.items()}
+    tf_report(f"flash kernels vs plain, layer {L // 2} of the stacked forward",
+              shape=list(q.shape), rel_err=errs, tol=F32_TOL)
+    if not all(e < F32_TOL for e in errs.values()):
+        raise RuntimeError(f"a flash kernel disagrees with its plain version: {errs}")
+    del q, k, v, do, o_ref, lse_ref, di, args, held
+
+    # ---- the main path: KFAC's MC factor pass on the stacked flash GPT --- #
+    sargs = (stacked.model, stacked.loss_fn, stacked.kfac_params, stacked.data)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for n in fa.launches:
+        fa.launches[n] = 0
+    kfac, cold_ms = timed(torch, lambda: KFACLinearOperator(*sargs, fisher_type="mc"))
+    launches = dict(fa.launches)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    _, warm_ms = timed(torch, lambda: KFACLinearOperator(*sargs, fisher_type="mc"))
+    ref = KFACLinearOperator(unrolled.model, unrolled.loss_fn, unrolled.kfac_params,
+                             unrolled.data, fisher_type="mc", check_deterministic=False)
+    index = {g.key: gi for gi, g in enumerate(ref.groups)}
+    worst = 0.0
+    for gi, g in enumerate(kfac.groups):
+        for l in range(g.stack or 1):
+            key = g.key if not g.stack else tuple(
+                None if n is None else n.replace("h.", f"h{l}.", 1) for n in g.key)
+            for mine, theirs in ((kfac._aaT, ref._aaT), (kfac._ggT, ref._ggT)):
+                if gi in mine:
+                    a = mine[gi][l] if g.stack else mine[gi]
+                    worst = max(worst, rel_err(a, theirs[index[key]]))
+    del ref
+    emb = {g.name: bool(kfac._aaT[gi].isfinite().all() and kfac._ggT[gi].isfinite().all())
+           for gi, g in enumerate(kfac.groups) if g.input_diag}
+    tf_report("KFAC MC factor pass, stacked flash GPT-2 small with embeddings",
+              cold_ms_with_determinism_probe=cold_ms, warm_ms_with_determinism_probe=warm_ms,
+              flash_launches=launches, groups=len(kfac.groups),
+              stacked_groups=sum(1 for g in kfac.groups if g.stack),
+              factors_vs_unrolled_rel_err=worst, tol=FACTOR_TOL, embedding_groups_finite=emb,
+              peak_memory_gib=peak_gib, card=smi)
+    if min(launches.values()) < L:
+        raise RuntimeError(f"a flash kernel ran fewer than {L} times: {launches}")
+    if not (worst < FACTOR_TOL and sorted(emb) == ["wpe", "wte"] and all(emb.values())):
+        raise RuntimeError(f"stacked factors vs unrolled {worst} (tol {FACTOR_TOL}); "
+                           f"embedding groups finite: {emb}")
+    del unrolled
+    torch.cuda.empty_cache()
+
+    grad = gradient(torch, stacked)
+    inverses = {
+        "heuristic": dict(damping=1e-3, use_heuristic_damping=True),
+        "exact": dict(damping=FAMILY_DAMPING, use_exact_damping=True),
+        f"rank {STACK_RANK}": dict(damping=FAMILY_DAMPING, use_exact_damping=True,
+                                   rank=STACK_RANK),
+    }
+    times, finite, kinds = {}, {}, {}
+    for label, inv_kw in inverses.items():
+        (inv, step), times[label] = event_ms(
+            torch, lambda inv_kw=inv_kw: (lambda op: (op, op @ grad))(kfac.inverse(**inv_kw)))
+        finite[label] = finite_tree(step)
+        kinds[label] = sorted({kind for kind, _ in inv._blocks_data.values()})
+        del inv, step
+    matvec_ms = time_ms(lambda: kfac @ grad, torch, reps=10)
+    finite["K g"] = finite_tree(kfac @ grad)
+    busy = device_profile(torch, "stacked GPT KFAC factor pass", factor_computer(stacked).compute)
+    tf_report("KFAC inverses and matvec, stacked flash GPT-2 small",
+              inverse_and_apply_ms_cuda_events=times, block_kinds=kinds,
+              matvec_ms_median_of_10=matvec_ms, finite=finite,
+              factor_pass_busy_share=busy, card=smi)
+    if not all(finite.values()) or "slreigh" not in kinds[f"rank {STACK_RANK}"]:
+        raise RuntimeError(f"stacked GPT inverses: finite {finite}, block kinds {kinds}")
+    del kfac
+    torch.cuda.empty_cache()
+
+    # ---- EKFAC on the stacked GPT by phase ------------------------------ #
+    comp = EKFACComputer(*sargs, fisher_type="mc", check_deterministic=False)
+    (aaT, ggT, _), factor_ms = timed(torch, comp.compute)
+    (Q_a, Q_g), eigh_ms = timed(torch, lambda: comp.eigenbases(aaT, ggT))
+    lambdas, corr_ms = timed(torch, lambda: comp.correction_pass(Q_a, Q_g))
+    del aaT, ggT, comp
+    ek = EKFACLinearOperator.from_state_dict(
+        {"Q_a": Q_a, "Q_g": Q_g, "lambdas": lambdas}, *sargs, fisher_type="mc")
+    ek_kinds = sorted({kind for kind, _ in ek._blocks_data.values()})
+    ok = all(finite_tree(lam) and bool((lam >= 0).all()) for lam in lambdas.values())
+    ek_matvec_ms = time_ms(lambda: ek @ grad, torch, reps=10)
+    step_ok = finite_tree(ek.inverse(damping=FAMILY_DAMPING) @ grad)
+    tf_report("EKFAC, stacked flash GPT-2 small with embeddings", factor_pass_ms=factor_ms,
+              eigh_ms=eigh_ms, correction_pass_ms=corr_ms, block_kinds=ek_kinds,
+              corrected_eigenvalues_finite_nonnegative=ok, matvec_ms_median_of_10=ek_matvec_ms,
+              inverse_step_finite=step_ok, card=smi)
+    if not (ok and step_ok and {"eighd", "seigh"} <= set(ek_kinds)):
+        raise RuntimeError(f"stacked GPT EKFAC: eigenvalues ok {ok}, step finite {step_ok}, "
+                           f"kinds {ek_kinds}")
+    del ek, Q_a, Q_g, lambdas, grad, stacked, sargs
+    torch.cuda.empty_cache()
+
+    # ---- fused attention: SDPA's pinned backend under forward mode ------ #
+    einsum, fused = gpt(attention_impl="einsum"), gpt(attention_impl="fused")
+    X, y = fused.data[0]
+    with torch.no_grad():
+        fused_err = rel_err(fused.model(X), einsum.model(X))
+    q, k, v = layer_qkv(torch, fused.model, X, 0)
+    tangent = tuple(torch.randn_like(t) for t in (q, k, v))
+    backends = {}
+    for backend in (SDPBackend.MATH, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+        def attend(q, k, v, backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        try:
+            with warnings.catch_warnings():  # SDPA warns why each backend declines
+                warnings.simplefilter("ignore", UserWarning)
+                torch.func.jvp(attend, (q, k, v), tangent)
+            backends[backend.name] = "forward mode ok"
+        except (RuntimeError, NotImplementedError) as err:
+            backends[backend.name] = f"{type(err).__name__}: {str(err).splitlines()[0][:90]}"
+    del q, k, v, tangent
+    rows = {}
+    for name, cls in (("GGN", GGNLinearOperator), ("Hessian", HessianLinearOperator)):
+        ops = {impl: cls(p.model, p.loss_fn, p.params, p.data, check_deterministic=False)
+               for impl, p in (("fused", fused), ("einsum", einsum))}
+        vec = tree_randn_like(torch.Generator().manual_seed(3), ops["fused"].in_spec)
+        out = {impl: A @ vec for impl, A in ops.items()}
+        rows[name] = {
+            "rel_err_vs_einsum": rel_err(flat(out["fused"]), flat(out["einsum"])),
+            **{f"{impl}_matvec_ms_median_of_5": time_ms(lambda A=A: A @ vec, torch, reps=5)
+               for impl, A in ops.items()},
+        }
+        del ops, out
+    tf_report("fused GPT-2 small (SDPA) vs einsum", pinned_backend=tgpt.SDPA_BACKEND.name,
+              backends_under_jvp=backends, logits_rel_err=fused_err, logits_tol=STACK_TOL,
+              matvecs=rows, tol=FUSED_TOL, card=smi)
+    if backends[tgpt.SDPA_BACKEND.name] != "forward mode ok" or not fused_err < STACK_TOL or \
+            not all(r["rel_err_vs_einsum"] < FUSED_TOL for r in rows.values()):
+        raise RuntimeError(f"fused GPT: logits {fused_err}, matvecs {rows}, backends {backends}")
+    del einsum, fused
+    torch.cuda.empty_cache()
+
+    # ---- ViT-S/4 on CIFAR-10, unrolled and stacked ----------------------- #
+    vit_config = VIT_CONFIG or ViTConfig()
+    vits = {form: cifar10_vit(VIT_BATCH, vit_config, seed=0, device=dev,
+                              scan_blocks=form == "stacked")
+            for form in ("unrolled", "stacked")}
+    Xv = vits["stacked"].data[0][0]
+    with torch.no_grad():
+        vit_err = rel_err(vits["stacked"].model(Xv), vits["unrolled"].model(Xv))
+    rows = {}
+    for form, p in vits.items():
+        kernels.conv_input_covariance.launches = 0
+        kv, build_ms = timed(torch, lambda p=p: KFACLinearOperator(
+            p.model, p.loss_fn, p.kfac_params, p.data, fisher_type="mc"))
+        conv_launches = kernels.conv_input_covariance.launches
+        patch = next(g for g in kv.groups if g.uses[0].kind == "conv").uses[0]
+        eligible = kernels.conv_cov_kernel_supported(tuple(Xv.shape), patch.meta)
+        vg = gradient(torch, p)
+        step, inv_ms = timed(torch, lambda: kv.inverse(damping=FAMILY_DAMPING,
+                                                       use_exact_damping=True) @ vg)
+        G = GGNLinearOperator(p.model, p.loss_fn, p.params, p.data, check_deterministic=False)
+        gv = tree_randn_like(torch.Generator().manual_seed(4), G.in_spec)
+        rows[form] = {
+            "kfac_build_ms": build_ms, "conv_kernel_launches": conv_launches,
+            "kfac_matvec_ms_median_of_10": time_ms(lambda: kv @ vg, torch, reps=10),
+            "exact_inverse_and_apply_ms": inv_ms,
+            "ggn_matvec_ms_median_of_5": time_ms(lambda: G @ gv, torch, reps=5),
+            "stacked_groups": sum(1 for g in kv.groups if g.stack),
+            "patch_conv_kernel_eligible": eligible,
+            "finite": finite_tree(kv @ vg) and finite_tree(step) and finite_tree(G @ gv),
+        }
+        del kv, vg, step, G, gv
+    tf_report("ViT-S/4, CIFAR-10", batch=VIT_BATCH, logits_stacked_vs_unrolled=vit_err,
+              tol=STACK_TOL, forms=rows, card=smi)
+    if not vit_err < STACK_TOL or not all(
+            r["finite"] and r["conv_kernel_launches"] == 0 and not r["patch_conv_kernel_eligible"]
+            for r in rows.values()):
+        raise RuntimeError(f"ViT: logits {vit_err}, {rows}")
+    print("ViT patch conv: the conv kernel's eligibility gate rejected it "
+          "(kh*kw = 16 > 9, C = 3 < 16); it took the plain patches path")
+    del vits, Xv
+    torch.cuda.empty_cache()
+
+    worst = transformers_card_against_cpu(torch, dev)
+    tf_report("card vs CPU", problems=["tiny stacked GPT with embeddings", "tiny stacked ViT"],
+              dtype="float64", operators=["KFAC", "EKFAC"], worst_relative_error=worst,
+              tol=CARD_CPU_TOL)
+    return {f"flash_attention_{n}": launches[n] for n in FLASH_KERNELS}
+
+
+def transformers_card_against_cpu(torch, dev) -> float:
+    """KFAC and EKFAC (type-2) by the same code on the card and on the CPU,
+    float64, on the tiny stacked GPT with embeddings and the tiny stacked
+    ViT: ``A @ V`` to ``CARD_CPU_TOL``; returns the worst relative error."""
+    from curvlinops_tpu_torch import EKFACLinearOperator, KFACLinearOperator
+    from curvlinops_tpu_torch.models.gpt import TINY_GPT, shakespeare_nanogpt
+    from curvlinops_tpu_torch.models.vit import TINY_VIT, cifar10_vit
+
+    builds = {
+        "tiny stacked GPT with embeddings": lambda device: shakespeare_nanogpt(
+            2, TINY_GPT, dtype=torch.float64, device=device, scan_blocks=True,
+            include_embeddings=True),
+        "tiny stacked ViT": lambda device: cifar10_vit(
+            8, TINY_VIT, dtype=torch.float64, device=device, scan_blocks=True),
+    }
+    worst = 0.0
+    for name, build in builds.items():
+        on_cpu, on_card = build("cpu"), build(dev)
+        n = sum(t.numel() for t in on_cpu.kfac_params.values())
+        V = torch.randn((n, 2), generator=torch.Generator().manual_seed(7), dtype=torch.float64)
+        for C in (KFACLinearOperator, EKFACLinearOperator):
+            a, b = (C(p.model, p.loss_fn, p.kfac_params, p.data, fisher_type="type-2",
+                      check_deterministic=False) for p in (on_cpu, on_card))
+            err = rel_err((b @ V.to(dev)).cpu(), a @ V)
+            worst = max(worst, err)
+            if not err <= CARD_CPU_TOL:
+                raise RuntimeError(f"{name} {C.__name__}: card vs CPU rel err {err} "
+                                   f"(tol {CARD_CPU_TOL})")
     return worst
 
 

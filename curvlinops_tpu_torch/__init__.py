@@ -5,10 +5,11 @@ and never ``jax``; the JAX package stays the reference, and the port's
 tests hold each module against its JAX counterpart on the CPU. The slices
 ported so far run the KFAC family (KFAC with EXPAND and REDUCE, its exact,
 heuristic and randomized rank-``r`` damped inverses, EKFAC and KFOC) on
-ResNet-18/CIFAR-10 and on nanoGPT (GPT-2 small), the empirical-risk
-curvature operators, and the structured operators and
-the on-device solvers: losses and loss-Hessian structure, the ResNet, GPT
-and MLP models, the operator core (base with ``to_scipy``, dense, diagonal,
+ResNet-18/CIFAR-10, on nanoGPT (GPT-2 small; unrolled or scan-stacked
+blocks, einsum, flash or fused attention, embedding KFAC) and on the ViT,
+the empirical-risk curvature operators, and the structured operators and
+the on-device solvers: losses and loss-Hessian structure, the ResNet, GPT,
+ViT and MLP models, the operator core (base with ``to_scipy``, dense, diagonal,
 block-diagonal, eigh, Kronecker and embedding blocks, stacked, submatrix),
 the solvers (CG, MINRES, LSMR, Lanczos, LOBPCG) and the inverse operators
 built on them (CG, MINRES, LSMR, Neumann), the KFAC collector, factor computation,
@@ -48,6 +49,7 @@ from curvlinops_tpu_torch.kfac.operator import KFACLinearOperator
 from curvlinops_tpu_torch.losses import BCEWithLogitsLoss, CrossEntropyLoss, MSELoss
 from curvlinops_tpu_torch.models.gpt import GPTConfig, shakespeare_nanogpt
 from curvlinops_tpu_torch.models.resnet import cifar10_resnet18
+from curvlinops_tpu_torch.models.vit import ViTConfig, cifar10_vit
 from curvlinops_tpu_torch.ops.base import (
     ChainLinearOperator,
     LinearOperator,
@@ -137,6 +139,8 @@ __all__ = [
     # adapters
     "make_functional_call",
     "GPTConfig",
+    "ViTConfig",
     "shakespeare_nanogpt",
+    "cifar10_vit",
     "cifar10_resnet18",
 ]

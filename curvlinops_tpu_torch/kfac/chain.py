@@ -1,13 +1,15 @@
 """Application and damped inversion of KFAC chains ``P @ blockdiag @ P^T``.
 
-PyTorch counterpart of ``curvlinops_tpu/kfac/chain.py`` for unstacked
-Kronecker blocks, eigendecomposed blocks and rank-``r`` sector blocks.
-:class:`KroneckerChainOperator` keeps the introspectable
-chain (canonical converters and one operator per block) and applies it
-directly block by block; :func:`grouped_kron_inverse` damps and inverts
-every factor with one batched Cholesky per distinct factor shape and reads
-its two failure flags back to the host once. :func:`stacked_kron_inverse`
-damps and inverts the stacked blocks of ``ops/stacked.py``.
+PyTorch counterpart of ``curvlinops_tpu/kfac/chain.py`` for Kronecker
+blocks, eigendecomposed blocks and rank-``r`` sector blocks, each plain,
+scan-stacked (a leading ``L`` axis on every factor) or of an embedding
+(a diagonal right factor). :class:`KroneckerChainOperator` keeps the
+introspectable chain (canonical converters and one operator per block) and
+applies it directly block by block; :func:`grouped_kron_inverse` damps and
+inverts every factor with one batched Cholesky per distinct factor size
+(stacked factors join their size's batch) and reads its two failure flags
+back to the host once. :func:`stacked_kron_inverse` damps and inverts the
+stacked blocks of ``ops/stacked.py`` alone.
 """
 
 from __future__ import annotations
@@ -17,21 +19,33 @@ from typing import Any, Callable
 
 import torch
 
-from curvlinops_tpu_torch.kfac.randomized import LowRankSectorOperator, lr_apply
+from curvlinops_tpu_torch.kfac.randomized import (
+    LowRankSectorOperator,
+    lr_apply,
+    lr_apply_stacked,
+)
 from curvlinops_tpu_torch.ops.base import ChainLinearOperator, PytreeLinearOperator
 from curvlinops_tpu_torch.ops.blockdiag import BlockDiagonalLinearOperator
 from curvlinops_tpu_torch.ops.eigh import EighDecomposedLinearOperator
 from curvlinops_tpu_torch.ops.kronecker import (
+    EmbeddingEighOperator,
+    EmbeddingKroneckerOperator,
     KroneckerProductLinearOperator,
     cholesky_failed,
     damped_cholesky_inverse,
     kron_matmat,
 )
+from curvlinops_tpu_torch.ops.stacked import (
+    StackedEighOperator,
+    StackedKroneckerOperator,
+    stacked_kron_matmat,
+)
 from curvlinops_tpu_torch.utils.flatten import spec_of, zeros_like_spec
 
 
 def batched_eigh(mats: dict) -> dict:
-    """Eigendecompose a dict of symmetric matrices, one batched call per shape.
+    """Eigendecompose a dict of symmetric matrices, one batched call per shape
+    (stacked ``[L, D, D]`` values decompose batched over the stack).
 
     Returns:
         ``{key: (eigenvalues, eigenvectors)}``.
@@ -53,10 +67,11 @@ def grouped_kron_inverse(
     use_heuristic_damping: bool,
     min_damping: float,
 ) -> dict | None:
-    """Plain or heuristic damped inversion of all ``kron`` blocks together.
+    """Plain or heuristic damped inversion of all ``kron``/``skron`` blocks together.
 
-    Equal factor shapes share one batched Cholesky; the heuristic
-    Martens-Grosse split is computed on the device, with ``pi = 1`` where a
+    Equal factor sizes share one batched Cholesky, a stacked ``[L, D, D]``
+    factor counting ``L`` matrices; the heuristic Martens-Grosse split is
+    computed on the device (per stack slice), with ``pi = 1`` where a
     factor's trace is zero. The only host readback is the pair of flags
     "some Cholesky failed" and "a mean eigenvalue is negative".
 
@@ -79,16 +94,16 @@ def grouped_kron_inverse(
     sqrt_damping = math.sqrt(damping)
     for gi, (_, fs) in blocks.items():
         if use_heuristic_damping and len(fs) == 2:
-            m1, m2 = (torch.diagonal(S).mean() for S in fs)
-            neg = neg | (m1 < 0) | (m2 < 0)
+            m1, m2 = (S.diagonal(dim1=-2, dim2=-1).mean(-1) for S in fs)
+            neg = neg | (m1 < 0).any() | (m2 < 0).any()
             ok = (m1 > 0) & (m2 > 0)
             pi = torch.where(ok, torch.sqrt(m2 / torch.where(ok, m1, 1.0)), 1.0)
             damps[(gi, 0)] = torch.clamp(sqrt_damping / pi, min=min_damping)
             damps[(gi, 1)] = torch.clamp(sqrt_damping * pi, min=min_damping)
         else:
             d = max(damping, min_damping) if use_heuristic_damping else damping
-            for fi in range(len(fs)):
-                damps[(gi, fi)] = torch.tensor(d, device=device)
+            for fi, S in enumerate(fs):
+                damps[(gi, fi)] = torch.full(S.shape[:-2], d, device=device)
     factors = {(gi, fi): S for gi, (_, fs) in blocks.items() for fi, S in enumerate(fs)}
     by_shape: dict = {}
     for key in sorted(factors):
@@ -97,14 +112,17 @@ def grouped_kron_inverse(
     inv: dict = {}
     failed = torch.zeros((), dtype=torch.bool, device=device)
     for (D, dtype), keys in by_shape.items():
-        A = torch.stack([factors[k] for k in keys])
-        dvec = torch.stack([damps[k] for k in keys]).to(dtype)
+        A = torch.cat([factors[k].reshape(-1, D, D) for k in keys])
+        dvec = torch.cat([damps[k].reshape(-1) for k in keys]).to(dtype)
         eye = torch.eye(D, dtype=dtype, device=device)
         L, info = torch.linalg.cholesky_ex(A + dvec[:, None, None] * eye)
         failed = failed | cholesky_failed(L, info)
         inverses = torch.cholesky_inverse(L)
-        for i, k in enumerate(keys):
-            inv[k] = inverses[i]
+        lead = 0
+        for k in keys:
+            n = damps[k].numel()
+            inv[k] = inverses[lead : lead + n].reshape(factors[k].shape)
+            lead += n
     flags = torch.stack([failed, neg]).cpu()  # the single host readback
     if flags[1]:
         raise RuntimeError("Negative mean eigenvalue detected.")
@@ -155,13 +173,71 @@ def stacked_kron_inverse(
     ]
 
 
+def _apply_eigh(data: tuple, comp: torch.Tensor) -> torch.Tensor:
+    lam, Qs = data
+    W = kron_matmat([Q.T for Q in Qs], comp)
+    return kron_matmat(Qs, lam.reshape(-1, 1) * W)
+
+
+def _apply_seigh(data: tuple, comp: torch.Tensor) -> torch.Tensor:
+    lam, Qs = data
+    W = stacked_kron_matmat([Q.mT for Q in Qs], comp)
+    return stacked_kron_matmat(Qs, lam.reshape(-1, 1) * W)
+
+
+def _apply_krond(data: tuple, comp: torch.Tensor) -> torch.Tensor:
+    G, d = data
+    X = comp.reshape(G.shape[1], d.shape[0], -1)
+    return (torch.einsum("ab,bvk->avk", G, X) * d[None, :, None]).reshape(-1, comp.shape[-1])
+
+
+def _apply_eighd(data: tuple, comp: torch.Tensor) -> torch.Tensor:
+    lam, Q = data
+    X = comp.reshape(*lam.shape, -1)
+    W = torch.einsum("ba,bvk->avk", Q, X) * lam[:, :, None]
+    return torch.einsum("ab,bvk->avk", Q, W).reshape(-1, comp.shape[-1])
+
+
+# per block kind: its operator (from the block's data) and its apply
+_BLOCKS = {
+    "kron": (lambda data: KroneckerProductLinearOperator(*data), kron_matmat),
+    "skron": (lambda data: StackedKroneckerOperator(*data), stacked_kron_matmat),
+    "eigh": (
+        lambda data: EighDecomposedLinearOperator(
+            data[0].reshape(-1), KroneckerProductLinearOperator(*data[1])
+        ),
+        _apply_eigh,
+    ),
+    "seigh": (lambda data: StackedEighOperator(*data), _apply_seigh),
+    "krond": (lambda data: EmbeddingKroneckerOperator(*data), _apply_krond),
+    "eighd": (lambda data: EmbeddingEighOperator(*data), _apply_eighd),
+    "lreigh": (LowRankSectorOperator, lr_apply),
+    "slreigh": (LowRankSectorOperator, lr_apply_stacked),
+}
+
+
+def _cast(data, dtype):
+    """A block's tensors (nested in lists and tuples) in ``dtype``."""
+    if isinstance(data, torch.Tensor):
+        return data.to(dtype)
+    return type(data)(_cast(t, dtype) for t in data)
+
+
 class KroneckerChainOperator(ChainLinearOperator):
     """``FromCanonical @ blockdiag(blocks) @ ToCanonical``.
 
-    ``blocks_data[gi]`` is ``("kron", [factors...])`` (a Kronecker block),
-    ``("eigh", (eigenvalues, [Q factors...]))`` (an eigendecomposed block)
-    or ``("lreigh", (U_A, U_G, S11, s12, s21, s22))`` (a rank-``r`` 4-sector
-    block, :mod:`curvlinops_tpu_torch.kfac.randomized`).
+    ``blocks_data[gi]`` is ``(kind, data)``:
+
+    - ``("kron", [factors...])``: a Kronecker block;
+    - ``("eigh", (eigenvalues, [Q factors...]))``: an eigendecomposed block;
+    - ``("lreigh", (U_A, U_G, S11, s12, s21, s22))``: a rank-``r`` 4-sector
+      block (:mod:`curvlinops_tpu_torch.kfac.randomized`);
+    - ``"skron"``, ``"seigh"``, ``"slreigh"``: their scan-stacked forms,
+      every tensor with a leading ``L`` axis (``ops/stacked.py``);
+    - ``("krond", [G, d])``: an embedding block ``G (x) diag(d)``, and
+      ``("eighd", (eigenvalues [C, V], Q_G))`` its eigendecomposed form
+      (``ops/kronecker.py``).
+
     ``to_canonical`` / ``from_canonical`` map the parameter dict to the
     tuple of flat canonical blocks and back; both accept trailing column
     axes, and being permutations they are each other's adjoints.
@@ -179,19 +255,9 @@ class KroneckerChainOperator(ChainLinearOperator):
         blocks = []
         for gi in sorted(blocks_data):
             kind, data = blocks_data[gi]
-            if kind == "kron":
-                blocks.append(KroneckerProductLinearOperator(*data))
-            elif kind == "eigh":
-                lam, Qs = data
-                blocks.append(
-                    EighDecomposedLinearOperator(
-                        lam.reshape(-1), KroneckerProductLinearOperator(*Qs)
-                    )
-                )
-            elif kind == "lreigh":
-                blocks.append(LowRankSectorOperator(data))
-            else:
+            if kind not in _BLOCKS:
                 raise ValueError(f"Unknown block kind {kind!r}.")
+            blocks.append(_BLOCKS[kind][0](data))
         param_spec = spec_of(params)
         canonical_spec = spec_of(to_canonical(zeros_like_spec(param_spec)))
         PT = PytreeLinearOperator(
@@ -208,13 +274,5 @@ class KroneckerChainOperator(ChainLinearOperator):
         out = []
         for comp, gi in zip(cols, sorted(self._blocks_data)):
             kind, data = self._blocks_data[gi]
-            if kind == "kron":
-                out.append(kron_matmat([S.to(dtype) for S in data], comp))
-            elif kind == "lreigh":
-                out.append(lr_apply(tuple(t.to(dtype) for t in data), comp))
-            else:
-                lam, Qs = data
-                Qs = [Q.to(dtype) for Q in Qs]
-                W = kron_matmat([Q.T for Q in Qs], comp)
-                out.append(kron_matmat(Qs, lam.reshape(-1, 1).to(dtype) * W))
+            out.append(_BLOCKS[kind][1](_cast(data, dtype), comp))
         return self._from_canonical(tuple(out))

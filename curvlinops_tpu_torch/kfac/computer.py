@@ -8,6 +8,12 @@ in closed form, and ONE batched backward over all ``V`` grad-output vectors
 gives every layer's output gradients (gradient covariances ``ggT``).
 EKFAC's correction pass and KFOC reuse the tapped forward and the batched
 backward (:meth:`KFACComputer._layer_grads`).
+
+A scan-stacked weight (``StackedLinear``, ``models/stack.py``) forms one
+group with ``stack = L``: each slice is its own Kronecker block, computed
+from the call that applied it, and the factors are held batched as
+``[L, d, d]``. An embedding group (``input_diag``) stores its input
+covariance as the diagonal vector of token counts ``[V]``.
 """
 
 from __future__ import annotations
@@ -41,7 +47,14 @@ from curvlinops_tpu_torch.risk import (
 
 @dataclass
 class ParamGroup:
-    """A canonical-space block: a weight (with its uses), a bias, or both."""
+    """A canonical-space block: a weight (with its uses), a bias, or both.
+
+    ``stack > 0`` marks a scan-stacked group: ``uses[l]`` applied slice
+    ``l``, and the canonical block is ``stack`` Kronecker blocks batched into
+    ``[L, d_out, d_out]`` / ``[L, d_in, d_in]`` factors. ``input_diag`` marks
+    an embedding group, whose input covariance is a diagonal ``[d_in]``
+    vector.
+    """
 
     name: str
     weight_path: str | None
@@ -50,6 +63,8 @@ class ParamGroup:
     joint: bool  # weight and bias share one block (bias column appended)
     d_in: int  # canonical input dim (incl. the bias column when joint)
     d_out: int
+    stack: int = 0  # stack length of a scan-stacked group, else 0
+    input_diag: bool = False  # embedding group: aaT is a diagonal [d_in] vector
 
     @property
     def key(self) -> tuple:
@@ -64,12 +79,30 @@ def _use_dims(u: LayerUse) -> tuple[int, int]:
     return u.meta["d_in"], u.meta["d_out"]
 
 
+def _stacked_uses(key: str, uses: list[LayerUse]) -> tuple[list[LayerUse], int]:
+    """The uses of a scan-stacked weight in slice order, and the stack length.
+
+    Raises:
+        ValueError: Unless every slice is used exactly once.
+    """
+    stack = uses[0].meta["stack"]
+    by_slice = sorted(uses, key=lambda u: u.meta.get("slice", -1))
+    if [u.meta.get("slice") for u in by_slice] != list(range(stack)):
+        raise ValueError(
+            f"Weight {key} is scan-stacked ({stack} slices) but has {len(uses)} "
+            "uses; tying a stacked leaf with other layers is not supported "
+            "(each slice must be applied exactly once)."
+        )
+    return by_slice, stack
+
+
 def build_groups(layers: list[LayerUse], separate_weight_and_bias: bool) -> list[ParamGroup]:
     """Merge layer uses into parameter groups (uses of one weight merge).
 
     Raises:
         ValueError: On a weight tied across layer kinds or canonical shapes,
-            or conflicting biases in a tied joint group.
+            conflicting biases in a tied joint group, or a scan-stacked
+            weight whose slices are not each used exactly once.
     """
     by_weight: dict[str, list[LayerUse]] = {}
     for use in layers:
@@ -77,6 +110,10 @@ def build_groups(layers: list[LayerUse], separate_weight_and_bias: bool) -> list
 
     groups: list[ParamGroup] = []
     for key, uses in by_weight.items():
+        stack = 0
+        if "stack" in uses[0].meta:
+            uses, stack = _stacked_uses(key, uses)
+        input_diag = uses[0].kind == "embedding"
         if len({u.kind for u in uses}) > 1:
             raise ValueError(f"Weight {key} is tied across layer kinds.")
         d_in, d_out = _use_dims(uses[0])
@@ -85,16 +122,16 @@ def build_groups(layers: list[LayerUse], separate_weight_and_bias: bool) -> list
                 f"Weight {key} is tied across layers with different canonical shapes."
             )
         bias_paths = sorted({u.bias_path for u in uses if u.bias_path is not None})
-        name = "+".join(u.name for u in uses)
+        name = uses[0].name if stack else "+".join(u.name for u in uses)
         if separate_weight_and_bias:
-            groups.append(ParamGroup(name, key, None, uses, False, d_in, d_out))
+            groups.append(
+                ParamGroup(name, key, None, uses, False, d_in, d_out, stack, input_diag)
+            )
             for bp in bias_paths:
                 bias_uses = [u for u in uses if u.bias_path == bp]
+                bias_name = name if stack else "+".join(u.name for u in bias_uses)
                 groups.append(
-                    ParamGroup(
-                        "+".join(u.name for u in bias_uses) + ".bias",
-                        None, bp, bias_uses, False, 1, d_out,
-                    )
+                    ParamGroup(bias_name + ".bias", None, bp, bias_uses, False, 1, d_out, stack)
                 )
         else:
             if len(bias_paths) > 1:
@@ -105,7 +142,9 @@ def build_groups(layers: list[LayerUse], separate_weight_and_bias: bool) -> list
             bias_path = bias_paths[0] if bias_paths else None
             joint = bias_path is not None
             groups.append(
-                ParamGroup(name, key, bias_path, uses, joint, d_in + joint, d_out)
+                ParamGroup(
+                    name, key, bias_path, uses, joint, d_in + joint, d_out, stack, input_diag
+                )
             )
     return groups
 
@@ -173,6 +212,12 @@ class KFACComputer:
 
         X0, _ = next(iter(data))
         self.groups = build_groups(self._get_traced(X0).layers, separate_weight_and_bias)
+        if any(g.input_diag for g in self.groups) and self.kfac_approx != KFACType.EXPAND:
+            raise ValueError(
+                "Embedding layers support kfac_approx=KFACType.EXPAND only "
+                "(averaging one-hot inputs over the sharing axis destroys the "
+                "exact-diagonal covariance structure)."
+            )
         self._check_deterministic = check_deterministic
 
     def _get_traced(self, X: torch.Tensor) -> TracedModel:
@@ -190,6 +235,9 @@ class KFACComputer:
         return G_rows.reshape(V, *pred_shape)
 
     def _input_covariance(self, x: torch.Tensor, use: LayerUse, bias_pad) -> tuple:
+        if use.kind == "embedding":  # one-hot inputs: exact diagonal (counts)
+            dtype = self.params[use.weight_path].dtype
+            return kmath.embedding_input_counts(x, use.meta["vocab"], dtype), x.numel() // x.shape[0]
         if (
             self.use_kernel
             and use.kind == "conv"
@@ -208,22 +256,42 @@ class KFACComputer:
         the bias), or ``None``."""
         return None if not group.joint else (1.0 if use.bias_path else 0.0)
 
-    def _group_inputs(self, inputs: list, group: ParamGroup) -> torch.Tensor:
-        """A weight group's inputs in sharing format ``[B, S, d_in]`` (the
-        uses concatenated along ``S``, the bias column appended when joint)."""
-        parts = [
-            kmath.input_to_sharing_format(
-                inputs[u.layer_id], u.kind, u.meta, self.kfac_approx, self._bias_pad(group, u)
-            )
-            for u in group.uses
-        ]
+    @staticmethod
+    def slices(group: ParamGroup) -> list[list[LayerUse]]:
+        """The uses behind each Kronecker block of a group: one list per
+        slice of a stacked group, else all uses in one list."""
+        return [[u] for u in group.uses] if group.stack else [group.uses]
+
+    @staticmethod
+    def stack_slices(group: ParamGroup, parts: list):
+        """Per-slice results stacked along a leading axis for a stacked
+        group (tuples slot by slot), else the one result."""
+        if not group.stack:
+            return parts[0]
+        if isinstance(parts[0], tuple):
+            return tuple(torch.stack(slot) for slot in zip(*parts))
+        return torch.stack(parts)
+
+    def _group_inputs(self, inputs: list, group: ParamGroup, uses: list) -> torch.Tensor:
+        """A weight group's inputs from ``uses`` in sharing format
+        ``[B, S, d_in]`` (the uses concatenated along ``S``, the bias column
+        appended when joint); an embedding group's token ids ``[B, S]``."""
+        if group.input_diag:
+            parts = [inputs[u.layer_id].reshape(inputs[u.layer_id].shape[0], -1) for u in uses]
+        else:
+            parts = [
+                kmath.input_to_sharing_format(
+                    inputs[u.layer_id], u.kind, u.meta, self.kfac_approx, self._bias_pad(group, u)
+                )
+                for u in uses
+            ]
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
-    def _group_grads(self, grads: list, group: ParamGroup) -> torch.Tensor:
-        """A group's output gradients in sharing format ``[V, B, S, d_out]``."""
+    def _group_grads(self, grads: list, uses: list) -> torch.Tensor:
+        """The output gradients of ``uses`` in sharing format ``[V, B, S, d_out]``."""
         parts = [
             kmath.grad_to_sharing_format(grads[u.layer_id], u.kind, u.meta, self.kfac_approx)
-            for u in group.uses
+            for u in uses
         ]
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
 
@@ -261,25 +329,30 @@ class KFACComputer:
     def _batch_factors(self, traced, X, y, generator, correction) -> tuple[dict, dict]:
         pred, inputs, deltas = traced.apply_with_io(self.params, X)
 
-        aaT = {}
-        for gi, group in enumerate(self.groups):
-            if group.weight_path is None:
-                continue  # bias block: no input covariance
+        def input_cov(group, uses):
             cov, S_total = None, 0
-            for u in group.uses:
+            for u in uses:
                 cov_u, S_u = self._input_covariance(
                     inputs[u.layer_id], u, self._bias_pad(group, u)
                 )
                 cov = cov_u if cov is None else cov + cov_u
                 S_total += S_u
-            aaT[gi] = cov / (self.num_data * S_total)
+            return cov / (self.num_data * S_total)
 
+        aaT = {
+            gi: self.stack_slices(group, [input_cov(group, uses) for uses in self.slices(group)])
+            for gi, group in enumerate(self.groups)
+            if group.weight_path is not None  # a bias block has no input covariance
+        }
         if self.fisher_type == FisherType.FORWARD_ONLY:
             return aaT, {}  # identity ggT is attached after the data loop
 
         grads, corr_eff = self._layer_grads(pred, deltas, y, generator, correction)
         ggT = {
-            gi: kmath.gradient_covariance(self._group_grads(grads, group), corr_eff)
+            gi: self.stack_slices(group, [
+                kmath.gradient_covariance(self._group_grads(grads, uses), corr_eff)
+                for uses in self.slices(group)
+            ])
             for gi, group in enumerate(self.groups)
         }
         return aaT, ggT
@@ -317,7 +390,8 @@ class KFACComputer:
         if self.fisher_type == FisherType.FORWARD_ONLY:
             dtype = next(iter(self.params.values())).dtype
             for gi, group in enumerate(self.groups):
-                ggT_acc[gi] = torch.eye(group.d_out, dtype=dtype, device=self.device)
+                eye = torch.eye(group.d_out, dtype=dtype, device=self.device)
+                ggT_acc[gi] = eye.repeat(group.stack, 1, 1) if group.stack else eye
         return aaT_acc, ggT_acc, self.groups
 
     def _determinism_probe(self) -> None:

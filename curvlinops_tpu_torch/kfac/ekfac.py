@@ -14,8 +14,15 @@ With ``rank`` given, groups with a factor larger than ``rank`` take
 randomized partial bases (:func:`~curvlinops_tpu_torch.kfac.randomized.batched_randomized_eigh`)
 and the correction pass accumulates the four sector sums of
 :func:`~curvlinops_tpu_torch.kfac.randomized.lr_sector_stats` instead of the
-full ``[D1, D2]`` grid. Embedding EKFAC (``"eighd"`` blocks) is not ported:
-the port has no embedding KFAC.
+full ``[D1, D2]`` grid.
+
+A scan-stacked group eigendecomposes its ``[L, d, d]`` factors batched and
+corrects slice by slice (``"seigh"`` blocks, ``"slreigh"`` at rank ``r``).
+An embedding group keeps the identity basis of its diagonal input factor
+(no ``eigh`` of it, no rank-``r`` route) and corrects by a segment sum over
+token ids (``"eighd"`` blocks,
+:func:`~curvlinops_tpu_torch.kfac.math.eigenvalue_correction_embedding`);
+a lookup inside a scan loop is refused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -44,8 +51,8 @@ class EKFACComputer(KFACComputer):
 
     Raises:
         ValueError: For a ``rank`` that is not a positive int, a Fisher type
-            other than type-2, MC or empirical, or a model output that is
-            not 2d.
+            other than type-2, MC or empirical, an embedding lookup inside a
+            scan loop, or a model output that is not 2d.
     """
 
     _SUPPORTED_FISHER = (FisherType.TYPE2, FisherType.MC, FisherType.EMPIRICAL)
@@ -67,6 +74,11 @@ class EKFACComputer(KFACComputer):
             raise ValueError(
                 f"EKFAC supports fisher types {self._SUPPORTED_FISHER}, got {self.fisher_type}."
             )
+        if any(g.input_diag and "scan" in g.uses[0].meta for g in self.groups):
+            raise ValueError(
+                "EKFAC does not support embedding lookups inside a scan; use "
+                "KFAC or hoist the lookup out of the scan."
+            )
         # per-sample gradients need independent per-datum loss terms
         X0, _ = next(iter(self.data))
         pred_shape = self._get_traced(X0).output_shape
@@ -85,15 +97,19 @@ class EKFACComputer(KFACComputer):
     def eigenbases(self, aaT: dict, ggT: dict) -> tuple[dict, dict]:
         """Eigenvectors of every factor: batched ``eigh``, or randomized
         rank-``r`` bases for the groups with a factor larger than ``rank``
-        (recorded in :attr:`lr_groups`)."""
+        (recorded in :attr:`lr_groups`). An embedding group's diagonal input
+        factor has the identity basis and gets no ``Q_a`` entry."""
+        diag = {gi for gi, g in enumerate(self.groups) if g.input_diag}
         lr_groups = set()
         if self.rank is not None:
             for gi in ggT:  # bias-only groups have no aaT entry
                 dims = [ggT[gi].shape[-1]] + ([aaT[gi].shape[-1]] if gi in aaT else [])
-                if max(dims) > self.rank:
+                if gi not in diag and max(dims) > self.rank:
                     lr_groups.add(gi)
         self.lr_groups = lr_groups
-        eig_a = batched_eigh({gi: v for gi, v in aaT.items() if gi not in lr_groups})
+        eig_a = batched_eigh(
+            {gi: v for gi, v in aaT.items() if gi not in lr_groups and gi not in diag}
+        )
         eig_g = batched_eigh({gi: v for gi, v in ggT.items() if gi not in lr_groups})
         Q_a = {gi: Q for gi, (_, Q) in eig_a.items()}
         Q_g = {gi: Q for gi, (_, Q) in eig_g.items()}
@@ -124,27 +140,37 @@ class EKFACComputer(KFACComputer):
                 self._batch_correction(X),
             )
             for gi, group in enumerate(self.groups):
-                g = self._group_grads(grads, group).to(Q_g[gi].dtype)  # the bases' dtype
-                if group.weight_path is None:
-                    a, Qa = None, None
-                    if gi in self.lr_groups:
-                        # the bias "input" is the constant 1: a one-dim a-basis
-                        a, Qa = g.new_ones(g.shape[1:3] + (1,)), g.new_ones((1, 1))
-                else:
-                    a, Qa = self._group_inputs(inputs, group).to(g.dtype), Q_a[gi]
-                if gi in self.lr_groups:
-                    lam = tuple(corr_eff * t for t in lr_sector_stats(g, Q_g[gi], a, Qa))
-                    if gi in lambdas:
-                        lam = tuple(x + t for x, t in zip(lambdas[gi], lam))
-                else:
-                    lam = corr_eff * kmath.eigenvalue_correction(
-                        g, Q_g[gi], a, Qa, self._force_strategy
-                    )
-                    if gi in lambdas:
-                        lam = lambdas[gi] + lam
+                parts = [
+                    self._slice_correction(inputs, grads, group, gi, uses, Q_a, Q_g, corr_eff, l)
+                    for l, uses in enumerate(self.slices(group))
+                ]
+                lam = self.stack_slices(group, parts)
+                if gi in lambdas:
+                    old = lambdas[gi]
+                    lam = tuple(map(torch.add, old, lam)) if isinstance(lam, tuple) else old + lam
                 lambdas[gi] = lam
             del pred, inputs, deltas, grads
         return lambdas
+
+    def _slice_correction(self, inputs, grads, group, gi, uses, Q_a, Q_g, corr_eff, l):
+        """One Kronecker block's corrected eigenvalues from one batch (slice
+        ``l`` of a stacked group's bases), or its four sector sums."""
+        Qg = Q_g[gi][l] if group.stack else Q_g[gi]
+        g = self._group_grads(grads, uses).to(Qg.dtype)  # the bases' dtype
+        if group.input_diag:
+            idx = self._group_inputs(inputs, group, uses)
+            return corr_eff * kmath.eigenvalue_correction_embedding(g, Qg, idx, group.d_in)
+        if group.weight_path is None:
+            a, Qa = None, None
+            if gi in self.lr_groups:
+                # the bias "input" is the constant 1: a one-dim a-basis
+                a, Qa = g.new_ones(g.shape[1:3] + (1,)), g.new_ones((1, 1))
+        else:
+            a = self._group_inputs(inputs, group, uses).to(g.dtype)
+            Qa = Q_a[gi][l] if group.stack else Q_a[gi]
+        if gi in self.lr_groups:
+            return tuple(corr_eff * t for t in lr_sector_stats(g, Qg, a, Qa))
+        return corr_eff * kmath.eigenvalue_correction(g, Qg, a, Qa, self._force_strategy)
 
 
 class EKFACLinearOperator(KFACLinearOperator):
@@ -173,17 +199,24 @@ class EKFACLinearOperator(KFACLinearOperator):
 
     def _rebuild_chain(self) -> None:
         blocks_data = {}
-        for gi in range(len(self._groups)):
+        for gi, group in enumerate(self._groups):
             lam = self._lambdas[gi]
             if isinstance(lam, (tuple, list)):
                 # rank-r group: accumulated sector sums -> sector spectra; a
                 # bias-only group carries a trivial one-dim a-basis
                 Qg = self._Q_g[gi]
-                Qa = self._Q_a.get(gi, Qg.new_ones((1, 1)))
-                blocks_data[gi] = ("lreigh", lr_corrected_data(Qg, Qa, tuple(lam)))
+                Qa = self._Q_a.get(gi, Qg.new_ones((*Qg.shape[:-2], 1, 1)))
+                kind = "slreigh" if group.stack else "lreigh"
+                blocks_data[gi] = (kind, lr_corrected_data(Qg, Qa, tuple(lam)))
+                continue
+            if group.input_diag:
+                blocks_data[gi] = ("eighd", (lam.reshape(group.d_out, group.d_in), self._Q_g[gi]))
                 continue
             Qs = [self._Q_g[gi]] + ([self._Q_a[gi]] if gi in self._Q_a else [])
-            blocks_data[gi] = ("eigh", (lam.reshape(-1), Qs))
+            if group.stack:
+                blocks_data[gi] = ("seigh", (lam.reshape(group.stack, -1), Qs))
+            else:
+                blocks_data[gi] = ("eigh", (lam.reshape(-1), Qs))
         to_canonical, from_canonical = make_to_canonical(self._groups, self._params)
         KroneckerChainOperator.__init__(
             self, self._params, blocks_data, to_canonical, from_canonical
@@ -201,7 +234,7 @@ class EKFACLinearOperator(KFACLinearOperator):
         blocks_data = {}
         for gi in sorted(self._blocks_data):
             kind, payload = self._blocks_data[gi]
-            if kind == "lreigh":
+            if kind in ("lreigh", "slreigh"):
                 blocks_data[gi] = (kind, lr_map_scales(payload, lambda s: 1.0 / (s + damping)))
             else:
                 lam, Qs = payload

@@ -135,8 +135,8 @@ class KFOCComputer(KFACComputer):
     """Single-batch computer for KFOC's per-sample-gradient factors.
 
     Raises:
-        ValueError: For a Fisher type other than type-2 or MC, REDUCE, or
-            more than one batch.
+        ValueError: For a Fisher type other than type-2 or MC, REDUCE, a
+            scan-stacked or embedding group, or more than one batch.
     """
 
     def __init__(self, *args, power_iters: int = 2000, power_tol: float | None = None, **kwargs):
@@ -147,6 +147,12 @@ class KFOCComputer(KFACComputer):
             raise ValueError(f"KFOC supports TYPE2/MC fisher types, got {self.fisher_type}.")
         if self.kfac_approx != KFACType.EXPAND:
             raise ValueError("KFOC supports KFACType.EXPAND only.")
+        if any(group.stack for group in self.groups):
+            raise ValueError(
+                "KFOC does not support scan-stacked layers; unroll the stack or use KFAC/EKFAC."
+            )
+        if any(group.input_diag for group in self.groups):
+            raise ValueError("KFOC does not support embedding layers; use KFAC.")
         n_batches = sum(1 for _ in self.data)
         if n_batches != 1:
             raise ValueError(f"KFOC requires a single batch, got {n_batches}.")
@@ -170,13 +176,13 @@ class KFOCComputer(KFACComputer):
         first, second, infos = {}, {}, {}
         by_shape: dict = {}
         for gi, group in enumerate(self.groups):
-            g = self._group_grads(grads, group)  # [V, N, S, d_out]
+            g = self._group_grads(grads, group.uses)  # [V, N, S, d_out]
             if group.weight_path is None:
                 Pb = sqrt_corr * g.sum(dim=2)  # [V, N, d_out]
                 Pb = Pb.reshape(-1, Pb.shape[-1])
                 first[gi] = Pb.T @ Pb
                 continue
-            a = self._group_inputs(inputs, group)  # [N, S, d_in]
+            a = self._group_inputs(inputs, group, group.uses)  # [N, S, d_in]
             P = sqrt_corr * (g.transpose(-1, -2) @ a)  # [V, N, d_out, d_in]
             by_shape.setdefault(tuple(P.shape), []).append((gi, P))
         del grads, inputs

@@ -16,6 +16,12 @@ weight-sharing format ``[batch, shared, features]``:
 - output gradients flatten (EXPAND) or sum (REDUCE) their sharing dims to
   ``[V, B, S, d_out]``.
 
+Embedding lookups (``nn.Embedding``) are dense layers with one-hot inputs:
+the canonical weight is the transposed table ``[C, V]``, the input
+covariance is exactly diagonal (:func:`embedding_input_counts`), and EKFAC's
+correction is a segment sum over token ids
+(:func:`eigenvalue_correction_embedding`).
+
 Covariance scalings follow the reference: ``aaT`` is divided by
 ``N_data * shared`` by the caller, ``ggT`` is multiplied by the loss
 correction ``num_loss_terms^2 / (per_example_terms * N_data)`` for mean
@@ -58,6 +64,28 @@ def canonical_dense_weight_inverse(W_canon: torch.Tensor, meta: dict) -> torch.T
     """Inverse of :func:`canonical_dense_weight` (the identity)."""
     del meta
     return W_canon
+
+
+def canonical_embedding_weight(W: torch.Tensor) -> torch.Tensor:
+    """An embedding table ``[V, C, *cols]`` to canonical ``[C, V, *cols]``."""
+    return W.transpose(0, 1)
+
+
+def canonical_embedding_weight_inverse(W_canon: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`canonical_embedding_weight`."""
+    return W_canon.transpose(0, 1)
+
+
+def embedding_input_counts(idx: torch.Tensor, vocab: int, dtype: torch.dtype) -> torch.Tensor:
+    """Exact diagonal input covariance of a lookup (un-normalized).
+
+    One-hot inputs make ``aaT = sum_{b,s} onehot onehot^T`` exactly
+    ``diag(token counts)``; no ``[V, V]`` matrix is formed (GPT-2's vocab
+    would need 10 GiB). The counts are exact integers, returned in float32
+    (float64 for a float64 ``dtype``), the factors' accumulation dtype.
+    """
+    counts = torch.bincount(idx.reshape(-1), minlength=vocab)
+    return counts.to(torch.float64 if dtype == torch.float64 else torch.float32)
 
 
 def conv_output_size(size: int, kernel: int, stride: int, pads: tuple) -> int:
@@ -221,6 +249,33 @@ def _batched_weight_grads_sq(left: torch.Tensor, right: torch.Tensor) -> torch.T
     ``right [B, S, n]``: the squared per-sample products, summed."""
     P = left.transpose(-1, -2) @ right  # [V, B, m, n], right broadcast over V
     return (P * P).sum(dim=(0, 1))
+
+
+def eigenvalue_correction_embedding(
+    g: torch.Tensor, Q_g: torch.Tensor, idx: torch.Tensor, vocab: int
+) -> torch.Tensor:
+    r"""EKFAC corrected eigenvalues of an embedding group.
+
+    The diagonal input covariance's eigenbasis is the identity, so
+    ``lam[d, v] = sum_{vec,n} ( sum_s (Q_g^T g_{vec,n,s})[d] 1[idx_{n,s} = v] )^2``:
+    a per-sample segment sum over token ids (``index_add_`` into
+    ``B * vocab`` segments) instead of a dense rotation.
+
+    Args:
+        g: ``[V_vec, B, S, D1]`` output gradients (KFAC-scaled).
+        Q_g: ``[D1, D1]`` eigenvectors of the gradient covariance.
+        idx: token ids ``[B, S]`` (the uses' ids concatenated along ``S``).
+        vocab: vocabulary size (canonical input dim).
+
+    Returns:
+        ``[D1, vocab]`` correction.
+    """
+    Vv, B, S, D1 = g.shape
+    rot = (g @ Q_g).movedim(0, 2).reshape(B * S, Vv * D1)  # rows (b, s)
+    seg_ids = (idx.reshape(B, S) + vocab * torch.arange(B, device=idx.device)[:, None]).reshape(-1)
+    seg = rot.new_zeros(B * vocab, Vv * D1).index_add_(0, seg_ids, rot)
+    seg = seg.reshape(B, vocab, Vv, D1)
+    return torch.einsum("bvad,bvad->dv", seg, seg)
 
 
 def eigenvalue_correction(

@@ -2,8 +2,11 @@
 
 PyTorch counterpart of ``curvlinops_tpu/kfac/operator.py``. The
 Kronecker-factored curvature lives in a canonical per-group space (flattened
-``[d_out, d_in(+1)]`` blocks); the canonical converters are permutations
-between the parameter dict and that space, so each is the other's adjoint.
+``[d_out, d_in(+1)]`` blocks; ``[L, d_out, d_in(+1)]`` for a scan-stacked
+group, ``[C, V]`` for an embedding table); the canonical converters are
+permutations between the parameter dict and that space, so each is the
+other's adjoint. A group's block kind follows its layout: ``"kron"``,
+``"skron"`` (stacked) or ``"krond"`` (embedding, a diagonal input factor).
 
 Example:
     >>> import torch
@@ -32,34 +35,50 @@ from curvlinops_tpu_torch.kfac.chain import (
     KroneckerChainOperator,
     batched_eigh,
     grouped_kron_inverse,
+    stacked_kron_inverse,
 )
 from curvlinops_tpu_torch.kfac.computer import KFACComputer, ParamGroup
 from curvlinops_tpu_torch.kfac.randomized import batched_randomized_eigh, lr_damped_inverse_data
 from curvlinops_tpu_torch.ops.blockdiag import BlockDiagonalLinearOperator
-from curvlinops_tpu_torch.ops.kronecker import KroneckerProductLinearOperator
+from curvlinops_tpu_torch.ops.kronecker import (
+    EmbeddingKroneckerOperator,
+    KroneckerProductLinearOperator,
+)
 
 
-def damped_eig_assembly(eig: dict, reig: dict, damping: float, struct: list) -> dict:
+def damped_eig_assembly(
+    eig: dict, reig: dict, diag: dict, damping: float, struct: list
+) -> dict:
     """Every exact and rank-``r`` damped-inverse block in one pass.
 
-    ``struct`` lists ``(gi, n_factors, mode)`` with ``mode`` ``"lr"`` (the
-    4-sector inverse of ``reig[(gi, 0)]`` and ``reig[(gi, 1)]``) or
-    ``"eig"`` (``1 / (kron(eigenvalues) + damping)`` in the Kronecker
-    eigenbasis of ``eig[(gi, fi)]``).
+    ``struct`` lists ``(gi, kind, n_factors, mode)`` with ``kind`` the
+    block's (``"kron"``, ``"skron"``, ``"krond"``) and ``mode`` ``"lr"``
+    (the 4-sector inverse of ``reig[(gi, 0)]`` and ``reig[(gi, 1)]``),
+    ``"krond"`` (``1 / (lam_G d^T + damping)`` in ``G``'s eigenbasis, ``d``
+    from ``diag[gi]``) or ``"eig"`` (``1 / (kron(eigenvalues) + damping)``
+    in the Kronecker eigenbasis of ``eig[(gi, fi)]``, per stack slice for
+    ``"skron"``).
 
     Returns:
-        ``{gi: ("lreigh" | "eigh", data)}`` chain blocks.
+        ``{gi: (block kind, data)}`` chain blocks: ``"lreigh"``/``"slreigh"``,
+        ``"eighd"``, or ``"eigh"``/``"seigh"``.
     """
     out = {}
-    for gi, n_factors, mode in struct:
+    for gi, kind, n_factors, mode in struct:
+        stacked = kind == "skron"
         if mode == "lr":
-            out[gi] = ("lreigh", lr_damped_inverse_data(reig[(gi, 0)], reig[(gi, 1)], damping))
+            data = lr_damped_inverse_data(reig[(gi, 0)], reig[(gi, 1)], damping)
+            out[gi] = ("slreigh" if stacked else "lreigh", data)
+            continue
+        if mode == "krond":
+            lam_G, Q_G = eig[(gi, 0)]
+            out[gi] = ("eighd", (1.0 / (lam_G[:, None] * diag[gi][None, :] + damping), Q_G))
             continue
         lam = eig[(gi, 0)][0]
         for fi in range(1, n_factors):
-            lam = torch.kron(lam, eig[(gi, fi)][0])
+            lam = (lam[..., :, None] * eig[(gi, fi)][0][..., None, :]).flatten(-2)
         Qs = [eig[(gi, fi)][1] for fi in range(n_factors)]
-        out[gi] = ("eigh", (1.0 / (lam + damping), Qs))
+        out[gi] = ("seigh" if stacked else "eigh", (1.0 / (lam + damping), Qs))
     return out
 
 
@@ -71,36 +90,49 @@ def make_to_canonical(
     Both maps accept trailing (column) axes on every tensor.
     """
     names = list(params)
+    ndims = {n: p.ndim for n, p in params.items()}
+
+    def flat(t: torch.Tensor, ndim: int) -> torch.Tensor:
+        return t.reshape(-1, *t.shape[ndim:])
 
     def to_canonical(v: dict) -> tuple:
         blocks = []
         for group in groups:
             if group.weight_path is None:
-                blocks.append(v[group.bias_path])  # [d_out, *cols]
+                bp = group.bias_path
+                blocks.append(flat(v[bp], ndims[bp]))  # [(L *) d_out, *cols]
                 continue
-            W = v[group.weight_path]
-            if group.uses[0].kind == "conv":
+            W, kind = v[group.weight_path], group.uses[0].kind
+            if kind == "conv":
                 canon = kmath.canonical_conv_weight(W)
-            else:
+            elif kind == "embedding":
+                canon = kmath.canonical_embedding_weight(W)
+            else:  # dense, also stacked [L, d_out, d_in]
                 canon = kmath.canonical_dense_weight(W)
             if group.joint:
-                canon = torch.cat([canon, v[group.bias_path].unsqueeze(1)], dim=1)
-            blocks.append(canon.reshape(-1, *canon.shape[2:]))
+                b = v[group.bias_path]
+                canon = torch.cat([canon, b.unsqueeze(2 if group.stack else 1)], dim=2 if group.stack else 1)
+            blocks.append(flat(canon, 3 if group.stack else 2))
         return tuple(blocks)
 
     def from_canonical(blocks: tuple) -> dict:
         out = {}
         for group, block in zip(groups, blocks):
+            cols = block.shape[1:]
             if group.weight_path is None:
-                out[group.bias_path] = block
+                out[group.bias_path] = block.reshape(*params[group.bias_path].shape, *cols)
                 continue
-            mat = block.reshape(group.d_out, group.d_in, *block.shape[1:])
+            lead = (group.stack,) if group.stack else ()
+            mat = block.reshape(*lead, group.d_out, group.d_in, *cols)
+            last = len(lead) + 1  # the d_in axis
             if group.joint:
-                out[group.bias_path] = mat[:, -1]
-                mat = mat[:, :-1]
+                out[group.bias_path] = mat.select(last, -1)
+                mat = mat.narrow(last, 0, group.d_in - 1)
             use = group.uses[0]
             if use.kind == "conv":
                 out[group.weight_path] = kmath.canonical_conv_weight_inverse(mat, use.meta)
+            elif use.kind == "embedding":
+                out[group.weight_path] = kmath.canonical_embedding_weight_inverse(mat)
             else:
                 out[group.weight_path] = kmath.canonical_dense_weight_inverse(mat, use.meta)
         missing = [n for n in names if n not in out]
@@ -160,8 +192,11 @@ class KFACLinearOperator(KroneckerChainOperator):
 
     def _build_from_factors(self, params, groups, aaT, ggT) -> None:
         blocks_data = {
-            gi: ("kron", [ggT[gi]] + ([aaT[gi]] if gi in aaT else []))
-            for gi in range(len(groups))
+            gi: (
+                "krond" if group.input_diag else "skron" if group.stack else "kron",
+                [ggT[gi]] + ([aaT[gi]] if gi in aaT else []),
+            )
+            for gi, group in enumerate(groups)
         }
         to_canonical, from_canonical = make_to_canonical(groups, params)
         KroneckerChainOperator.__init__(self, params, blocks_data, to_canonical, from_canonical)
@@ -214,10 +249,12 @@ class KFACLinearOperator(KroneckerChainOperator):
         With ``rank`` (requires ``use_exact_damping=True``), a block with a
         factor larger than ``rank`` takes a randomized rank-``r``
         eigendecomposition of its factors with a trace-preserving tail
-        (:mod:`curvlinops_tpu_torch.kfac.randomized`); a bias-only block
-        rides the same route with a trivial ``[1, 1]`` second factor
-        (``kron(S, [[1]]) == S``). Smaller blocks keep the exact ``eigh``,
-        and ``rank >= D`` reproduces the exact inverse. ``rank_key`` is the
+        (:mod:`curvlinops_tpu_torch.kfac.randomized`; ``"slreigh"`` for a
+        stacked block); a bias-only block rides the same route with a
+        trivial ``[1, 1]`` second factor (``kron(S, [[1]]) == S``). Smaller
+        blocks keep the exact ``eigh``, and ``rank >= D`` reproduces the
+        exact inverse. An embedding block always takes the exact ``eigh`` of
+        its ``[C, C]`` factor; its diagonal factor is its own spectrum. ``rank_key`` is the
         ``torch.Generator`` that draws the test matrices (the JAX package's
         key); the default, a CPU generator seeded 0, makes repeated builds
         identical on any device.
@@ -238,40 +275,57 @@ class KFACLinearOperator(KroneckerChainOperator):
             if not isinstance(rank, int) or rank <= 0:
                 raise ValueError(f"rank must be a positive int, got {rank!r}.")
         if use_exact_damping:
-            flat, flat_rand, struct = {}, {}, []
+            flat, flat_rand, diag, struct = {}, {}, {}, []
             for gi in sorted(self._blocks_data):
-                _, fs = self._blocks_data[gi]
+                kind, fs = self._blocks_data[gi]
+                if kind == "krond":
+                    flat[(gi, 0)], diag[gi] = fs
+                    struct.append((gi, kind, 2, "krond"))
+                    continue
                 if rank is not None and max(S.shape[-1] for S in fs) > rank:
                     S = fs[0]
                     flat_rand[(gi, 0)] = S
-                    flat_rand[(gi, 1)] = fs[1] if len(fs) == 2 else S.new_ones((1, 1))
-                    struct.append((gi, 2, "lr"))
+                    flat_rand[(gi, 1)] = fs[1] if len(fs) == 2 else S.new_ones((*S.shape[:-2], 1, 1))
+                    struct.append((gi, kind, 2, "lr"))
                     continue
                 for fi, S in enumerate(fs):
                     flat[(gi, fi)] = S
-                struct.append((gi, len(fs), "eig"))
+                struct.append((gi, kind, len(fs), "eig"))
             eig = batched_eigh(flat)
             reig = (
                 batched_randomized_eigh(flat_rand, rank, rank_key, rank_power_iters)
                 if flat_rand else {}
             )
-            blocks_data = damped_eig_assembly(eig, reig, damping, struct)
+            blocks_data = damped_eig_assembly(eig, reig, diag, damping, struct)
         else:
             blocks_data = {}
             inv = grouped_kron_inverse(
-                self._blocks_data, damping, use_heuristic_damping, min_damping
+                {gi: v for gi, v in self._blocks_data.items() if v[0] != "krond"},
+                damping, use_heuristic_damping, min_damping,
             )
-            for gi, (_, fs) in self._blocks_data.items():
-                if inv is not None:
-                    blocks_data[gi] = ("kron", inv[gi])
-                    continue
-                block = KroneckerProductLinearOperator(*fs).inverse(
-                    damping=damping,
-                    use_heuristic_damping=use_heuristic_damping,
-                    min_damping=min_damping,
-                    retry_double_precision=retry_double_precision,
-                )
-                blocks_data[gi] = ("kron", block.factors)
+            for gi, (kind, fs) in self._blocks_data.items():
+                if kind == "krond":
+                    block = EmbeddingKroneckerOperator(*fs).inverse(
+                        damping=damping,
+                        use_heuristic_damping=use_heuristic_damping,
+                        min_damping=min_damping,
+                        retry_double_precision=retry_double_precision,
+                    )
+                    blocks_data[gi] = (kind, block.factors)
+                elif inv is not None:
+                    blocks_data[gi] = (kind, inv[gi])
+                elif kind == "skron":
+                    blocks_data[gi] = (kind, stacked_kron_inverse(
+                        fs, damping, use_heuristic_damping, min_damping, retry_double_precision,
+                    ))
+                else:
+                    block = KroneckerProductLinearOperator(*fs).inverse(
+                        damping=damping,
+                        use_heuristic_damping=use_heuristic_damping,
+                        min_damping=min_damping,
+                        retry_double_precision=retry_double_precision,
+                    )
+                    blocks_data[gi] = (kind, block.factors)
         return KroneckerChainOperator(
             self._params, blocks_data, self._to_canonical, self._from_canonical
         )

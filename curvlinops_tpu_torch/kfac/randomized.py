@@ -35,11 +35,14 @@ the caller's setting: the JAX package computes them at
 ``precision=HIGHEST``. Gaussian test matrices are drawn from an explicit
 ``torch.Generator`` on the generator's device and moved to the factors'
 device, so a CPU generator gives the same build on any device; every
-function that draws also takes the test matrix itself. The scan-stacked
-(``slreigh``) variants are not ported (there is no scan-stacked model).
+function that draws also takes the test matrix itself. Scan-stacked
+factors ``[L, D, D]`` batch through every step, and their sector data
+carries the leading ``L`` axis (``"slreigh"`` blocks, :func:`lr_apply_stacked`).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -132,13 +135,15 @@ def batched_randomized_eigh(
     power_iters: int = 1,
     mesh=None,
 ) -> dict:
-    """Randomized eigendecomposition of a dict of PSD ``[D, D]`` matrices.
+    """Randomized eigendecomposition of a dict of PSD ``[..., D, D]`` matrices.
 
     Equal shapes share one batched range finding (the shapes in sorted
     order, each batch's test matrix ``[b, D, r]`` drawn in turn from
-    ``generator``); all cores, which are ``[r, r]`` whatever ``D``, solve
-    as one batched ``eigh``. Matrices with ``D <= rank`` take the exact
-    ``eigh`` (their decomposition is complete either way).
+    ``generator``; a stacked ``[L, D, D]`` value counts ``L`` matrices); all
+    cores, which are ``[r, r]`` whatever ``D``, solve as one batched
+    ``eigh``. Matrices with ``D <= rank`` take the exact ``eigh`` (their
+    decomposition is complete either way). Results keep the values' leading
+    stack axes.
 
     Returns:
         ``{key: (lam, U, tail)}`` as :func:`randomized_eigh`.
@@ -156,12 +161,12 @@ def batched_randomized_eigh(
     cores, metas = [], []
     for shape, keys in sorted(by_shape.items()):
         D = shape[-1]
-        stacked = torch.stack([mats[k] for k in keys])
+        stacked = torch.cat([mats[k].reshape(-1, D, D) for k in keys])
         if D <= rank:
             lam, U = torch.linalg.eigh(stacked)
-            _scatter_back(out, keys, lam, U, stacked.new_zeros(len(keys)))
+            _scatter_back(out, mats, keys, lam, U, stacked.new_zeros(stacked.shape[0]))
             continue
-        omega = gaussian((len(keys), D, rank), generator, stacked)
+        omega = gaussian((stacked.shape[0], D, rank), generator, stacked)
         Q, core, tr = _range_core(stacked, omega, power_iters)
         cores.append(core)
         metas.append((keys, Q, tr, D))
@@ -171,20 +176,28 @@ def batched_randomized_eigh(
     w_all = w_all.clamp(min=0.0)  # PSD clamp, as in randomized_eigh
     lead = 0
     for keys, Q, tr, D in metas:
-        n = len(keys)
+        n = Q.shape[0]
         lam, V = w_all[lead : lead + n], V_all[lead : lead + n]
         lead += n
         with full_float32_matmul():
             U = Q @ V
         tail = ((tr - lam.sum(-1)) / (D - rank)).clamp(min=0.0)
-        _scatter_back(out, keys, lam, U, tail)
+        _scatter_back(out, mats, keys, lam, U, tail)
     return out
 
 
-def _scatter_back(out: dict, keys: list, lam, U, tail) -> None:
-    """Unstack per-key results."""
-    for i, k in enumerate(keys):
-        out[k] = (lam[i], U[i], tail[i])
+def _scatter_back(out: dict, mats: dict, keys: list, lam, U, tail) -> None:
+    """Unstack per-key results, restoring each value's leading stack axes."""
+    lead = 0
+    for k in keys:
+        batch = mats[k].shape[:-2]
+        n = math.prod(batch)
+        sl = slice(lead, lead + n)
+        out[k] = (
+            lam[sl].reshape(*batch, -1), U[sl].reshape(*batch, *U.shape[1:]),
+            tail[sl].reshape(batch),
+        )
+        lead += n
 
 
 # ---------------------------------------------------------------------- #
@@ -196,16 +209,17 @@ def lr_damped_inverse_data(eig_A: tuple, eig_G: tuple, damping: float) -> tuple:
     With ``A ~= U_A diag(lam) U_A^T + a (I - P_A)`` and ``G`` alike, the
     damped Kronecker product is diagonal in the sectors
     ``{span(U_A), perp} x {span(U_G), perp}`` with eigenvalues
-    ``lam_i mu_j``, ``lam_i b``, ``a mu_j`` and ``a b``.
+    ``lam_i mu_j``, ``lam_i b``, ``a mu_j`` and ``a b``. Leading stack axes
+    broadcast through.
 
     Returns:
         ``(U_A, U_G, S11, s12, s21, s22)``.
     """
     lam_A, U_A, a = eig_A
     lam_G, U_G, b = eig_G
-    S11 = 1.0 / (lam_A[:, None] * lam_G[None, :] + damping)
-    s12 = 1.0 / (lam_A * b + damping)
-    s21 = 1.0 / (a * lam_G + damping)
+    S11 = 1.0 / (lam_A[..., :, None] * lam_G[..., None, :] + damping)
+    s12 = 1.0 / (lam_A * b[..., None] + damping)
+    s21 = 1.0 / (a[..., None] * lam_G + damping)
     s22 = 1.0 / (a * b + damping)
     return (U_A, U_G, S11, s12, s21, s22)
 
@@ -240,6 +254,35 @@ def lr_apply(data: tuple, comp: torch.Tensor) -> torch.Tensor:
         + R22 * s22
     )
     return out.reshape(dA * dG, K)
+
+
+def lr_apply_stacked(data: tuple, comp: torch.Tensor) -> torch.Tensor:
+    """:func:`lr_apply` for ``L`` sector blocks: every slot carries a leading
+    ``L`` axis and ``comp`` is ``[L*dA*dG, K]``; each contraction is one
+    batched einsum over the stack."""
+    U_A, U_G, S11, s12, s21, s22 = data
+    L, dA, dG = U_A.shape[0], U_A.shape[1], U_G.shape[1]
+    K = comp.shape[-1]
+    X = comp.reshape(L, dA, dG, K)
+    P1 = torch.einsum("ldr,ldgk->lrgk", U_A, X)
+    P2 = torch.einsum("lgs,ldgk->ldsk", U_G, X)
+    C = torch.einsum("lgs,lrgk->lrsk", U_G, P1)
+    R12 = P1 - torch.einsum("lgs,lrsk->lrgk", U_G, C)
+    UC = torch.einsum("ldr,lrsk->ldsk", U_A, C)
+    R21 = P2 - UC
+    R22 = (
+        X
+        - torch.einsum("ldr,lrgk->ldgk", U_A, P1)
+        - torch.einsum("lgs,ldsk->ldgk", U_G, P2)
+        + torch.einsum("lgs,ldsk->ldgk", U_G, UC)
+    )
+    T11 = torch.einsum("lgs,lrsk->lrgk", U_G, C * S11[..., None])
+    out = (
+        torch.einsum("ldr,lrgk->ldgk", U_A, T11 + R12 * s12[:, :, None, None])
+        + torch.einsum("lgs,ldsk->ldgk", U_G, R21 * s21[:, None, :, None])
+        + R22 * s22[:, None, None, None]
+    )
+    return out.reshape(L * dA * dG, K)
 
 
 # ---------------------------------------------------------------------- #
@@ -290,16 +333,17 @@ def lr_corrected_data(U_g: torch.Tensor, U_a: torch.Tensor, stats: tuple) -> tup
 
     Returns:
         The ``(U_A, U_G, S11, s12, s21, s22)`` tuple of :func:`lr_apply`
-        (the gradient-covariance side first, as in the canonical blocks).
+        (the gradient-covariance side first, as in the canonical blocks);
+        stacked statistics keep their leading axis.
     """
     lam11, row_g, col_a, total = stats
-    dA, rA = U_g.shape
-    dG, rG = U_a.shape
+    dA, rA = U_g.shape[-2:]
+    dG, rG = U_a.shape[-2:]
     s12 = (row_g - lam11.sum(-1)).clamp(min=0.0) / max(dG - rG, 1)
     s21 = (col_a - lam11.sum(-2)).clamp(min=0.0) / max(dA - rA, 1)
-    s22 = (total - row_g.sum(-1) - col_a.sum(-1) + lam11.sum()).clamp(min=0.0) / max(
-        (dA - rA) * (dG - rG), 1
-    )
+    s22 = (
+        total - row_g.sum(-1) - col_a.sum(-1) + lam11.sum((-2, -1))
+    ).clamp(min=0.0) / max((dA - rA) * (dG - rG), 1)
     return (U_g, U_a, lam11, s12, s21, s22)
 
 
@@ -318,7 +362,7 @@ def _lr_spectrum_reductions(data: tuple) -> dict:
     (``(dA - rA)(dG - rG)``); logdet is NaN on a non-positive eigenvalue.
     """
     U_A, U_G, S11, s12, s21, s22 = data
-    mA, mG = U_A.shape[0] - U_A.shape[1], U_G.shape[0] - U_G.shape[1]
+    mA, mG = U_A.shape[-2] - U_A.shape[-1], U_G.shape[-2] - U_G.shape[-1]
 
     def red(f):
         return f(S11).sum() + mG * f(s12).sum() + mA * f(s21).sum() + mA * mG * f(s22).sum()
@@ -331,18 +375,21 @@ def _lr_spectrum_reductions(data: tuple) -> dict:
 
 class LowRankSectorOperator(LinearOperator):
     """One 4-sector block, for the rank-``r`` damped inverse (scales =
-    inverse spectra) and for rank-``r`` EKFAC (scales = corrected spectra)."""
+    inverse spectra) and for rank-``r`` EKFAC (scales = corrected spectra);
+    with a leading stack axis on every slot (``U_A [L, dA, r]``), ``L``
+    blocks batched over the stack (``"slreigh"``)."""
 
     SELF_ADJOINT = True
 
     def __init__(self, data: tuple):
         U_A, U_G = data[0], data[1]
-        n = U_A.shape[0] * U_G.shape[0]
+        n = math.prod(U_A.shape[:-1]) * U_G.shape[-2]
         super().__init__(TensorSpec((n,), U_A.dtype, U_A.device))
         self._data = data
+        self._apply = lr_apply_stacked if U_A.ndim == 3 else lr_apply
 
     def _matmat(self, M: torch.Tensor) -> torch.Tensor:
-        return lr_apply(self._data, M)
+        return self._apply(self._data, M)
 
     def trace(self) -> torch.Tensor:
         """Exact trace (closed form over the sector spectrum)."""

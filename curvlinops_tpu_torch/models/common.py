@@ -12,6 +12,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from curvlinops_tpu_torch.models.stack import StackedLinear
+
 
 @dataclass
 class Problem:
@@ -87,13 +89,24 @@ def _owner(model: nn.Module, name: str) -> nn.Module:
 
 def _layout_to_torch(t: torch.Tensor, owner: nn.Module, leaf: str) -> torch.Tensor:
     """One leaf from the JAX layout: conv HWIO -> OIHW, dense ``[in, out]``
-    -> ``[out, in]``; everything else (biases, embedding tables, norm
-    ``scale``/``bias``) passes unchanged."""
+    -> ``[out, in]`` (each slice of a stacked ``[L, in, out]``); everything
+    else (biases, embedding tables, norm ``scale``/``bias``, CLS token and
+    position table) passes unchanged."""
     if leaf == "weight" and isinstance(owner, nn.Conv2d):
         return t.permute(3, 2, 0, 1)
-    if leaf == "weight" and isinstance(owner, nn.Linear):
-        return t.T
+    if leaf == "weight" and isinstance(owner, (nn.Linear, StackedLinear)):
+        return t.transpose(-1, -2)
     return t
+
+
+def _torch_name(path: tuple, named: dict) -> str:
+    """The parameter name of a JAX path: ``W``/``b`` leaves become
+    ``weight``/``bias``, and a table leaf (``['wte']``) names the weight of
+    its ``nn.Embedding`` module."""
+    name = ".".join(path[:-1] + (_LEAF_TO_TORCH.get(path[-1], path[-1]),))
+    if name not in named and f"{name}.weight" in named:
+        return f"{name}.weight"
+    return name
 
 
 def from_jax_params(params_np: dict, model: nn.Module) -> dict[str, torch.Tensor]:
@@ -101,9 +114,10 @@ def from_jax_params(params_np: dict, model: nn.Module) -> dict[str, torch.Tensor
 
     Accepts a nested dict (``init_resnet``, ``init_gpt``) or the
     ``keystr``-keyed flat dict of ``kfac_restricted``. ``W``/``b`` leaves of
-    convs and dense layers become ``weight``/``bias``; each leaf is mapped by
-    the module that owns it (:func:`_layout_to_torch`). Works for
-    parameter-space vectors too.
+    convs and dense layers become ``weight``/``bias``, an embedding table
+    its module's ``weight``; each leaf is mapped by the module that owns it
+    (:func:`_layout_to_torch`), so a scan-stacked ``h`` subtree maps to the
+    stacked modules slice by slice. Works for parameter-space vectors too.
 
     Raises:
         KeyError: For a path the model has no parameter for.
@@ -112,7 +126,7 @@ def from_jax_params(params_np: dict, model: nn.Module) -> dict[str, torch.Tensor
     named = dict(model.named_parameters())
     out = {}
     for path, arr in _jax_paths(params_np).items():
-        name = ".".join(path[:-1] + (_LEAF_TO_TORCH.get(path[-1], path[-1]),))
+        name = _torch_name(path, named)
         if name not in named:
             raise KeyError(f"JAX path {path} maps to {name!r}, not a model parameter.")
         leaf = name.rpartition(".")[2]
@@ -139,9 +153,11 @@ def to_jax_params(named: dict[str, torch.Tensor], model: nn.Module) -> dict:
             arr = arr.float()
         if leaf == "weight" and isinstance(owner, nn.Conv2d):
             arr = arr.permute(2, 3, 1, 0)
-        elif leaf == "weight" and isinstance(owner, nn.Linear):
-            arr = arr.T
-        if isinstance(owner, (nn.Conv2d, nn.Linear)):
+        elif leaf == "weight" and isinstance(owner, (nn.Linear, StackedLinear)):
+            arr = arr.transpose(-1, -2)
+        if isinstance(owner, nn.Embedding):
+            leaf = prefix.pop()  # the table is a leaf of its own in JAX
+        elif isinstance(owner, (nn.Conv2d, nn.Linear, StackedLinear)):
             leaf = _LEAF_TO_JAX[leaf]
         node = tree
         for k in prefix:

@@ -255,18 +255,17 @@ def kfac_restricted(
     Returns:
         ``(model, kfac_params)``: parameters under ``conv*``/``fc``/``dense*``/
         ``attn*``/``mlp*`` names (not under ``bn*``/``ln*``) with all dims
-        <= 50k. The rest stay in the module, which the operators call with
+        <= 50k, and with ``include_embeddings`` the embedding tables
+        (``wte``/``wpe``/``emb*`` names, any vocabulary size: KFAC stores the
+        input covariance of a lookup as a diagonal vector). The rest stay in
+        the module, which the operators call with
         ``torch.func.functional_call``.
-
-    Raises:
-        NotImplementedError: For ``include_embeddings=True`` (embedding KFAC
-            is not ported yet).
     """
-    if include_embeddings:
-        raise NotImplementedError("Embedding KFAC is not ported yet.")
 
     def is_kfac(name: str, p: torch.Tensor) -> bool:
         parts = name.split(".")
+        if any(s.startswith(("wte", "wpe", "emb")) for s in parts):
+            return include_embeddings
         supported = any(
             s.startswith(("conv", "fc", "dense", "attn", "mlp")) for s in parts
         ) and not any(s.startswith(("bn", "ln")) for s in parts)

@@ -10,7 +10,10 @@ the CPU, and the Neumann series' divergence on the card; the rest of the
 KFAC family (REDUCE, the rank-r inverse, EKFAC, KFOC) on the card against
 the CPU, and the randomized range finder under a user's ``allow_tf32``; each
 estimator's core, the exact GGN diagonal and the held linearizations on the
-card.
+card; the transformer family: the stacked flash GPT's kernel launches and
+factors against the unrolled GPT's, KFAC and EKFAC on the stacked GPT with
+embeddings and the stacked ViT against the CPU, and the fused GPT's GGN
+through SDPA's pinned backend under forward mode.
 
 These tests need the card: they skip without one. The card's machine has no
 JAX, so this file imports only the port, and runs there without the suite's
@@ -654,3 +657,81 @@ def test_ggn_diagonal_card_matches_cpu(cuda, model):
         assert all(t.device.type == torch.device(dev).type for t in leaves)
         on[str(dev)] = torch.cat([t.reshape(-1).cpu() for t in leaves])
     assert rel_err(on[str(cuda)], on["cpu"]) < 1e-10
+
+
+# ---------------------------------------------------------------------- #
+# the transformer family on the card
+# ---------------------------------------------------------------------- #
+_STACKED_GPT = tgpt.GPTConfig(block_size=64, vocab_size=96, n_layer=3, n_head=2, n_embd=32)
+
+
+@pytest.mark.cuda
+def test_stacked_flash_gpt_launches_and_factors_on_card(cuda):
+    """KFAC on the stacked flash GPT with embeddings launches each flash
+    kernel at least once per layer (head dim 16), and its factors equal the
+    unrolled flash GPT's slice by slice."""
+    ops = {}
+    for scan_blocks in (True, False):
+        problem = tgpt.shakespeare_nanogpt(
+            batch_size=2, config=_STACKED_GPT, device=cuda, attention_impl="flash",
+            scan_blocks=scan_blocks, include_embeddings=True,
+        )
+        for n in tfa.launches:
+            tfa.launches[n] = 0
+        ops[scan_blocks] = KFACLinearOperator(
+            problem.model, problem.loss_fn, problem.kfac_params, problem.data,
+            fisher_type="mc",
+        )
+        if scan_blocks:
+            assert min(tfa.launches.values()) >= _STACKED_GPT.n_layer, tfa.launches
+    stacked, unrolled = ops[True], ops[False]
+    index = {g.key: gi for gi, g in enumerate(unrolled.groups)}
+    for gi, g in enumerate(stacked.groups):
+        for l in range(g.stack or 1):
+            key = tuple(None if n is None else n.replace("h.", f"h{l}.", 1) for n in g.key)
+            for mine, theirs in ((stacked._aaT, unrolled._aaT), (stacked._ggT, unrolled._ggT)):
+                if gi in mine:
+                    a = mine[gi][l] if g.stack else mine[gi]
+                    assert rel_err(a, theirs[index[key]]) < 1e-5, (g.name, l)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["kfac", "ekfac"])
+@pytest.mark.parametrize("model", ["gpt", "vit"])
+def test_transformer_kfac_card_matches_cpu(cuda, model, op):
+    """KFAC and EKFAC (type-2, float64) on the tiny stacked GPT with
+    embeddings and the tiny stacked ViT: the card against the CPU."""
+    from curvlinops_tpu_torch.kfac.ekfac import EKFACLinearOperator
+    from curvlinops_tpu_torch.models import vit as tvit
+
+    def build(device):
+        if model == "gpt":
+            return tgpt.shakespeare_nanogpt(2, tgpt.TINY_GPT, dtype=torch.float64, device=device,
+                                            scan_blocks=True, include_embeddings=True)
+        return tvit.cifar10_vit(8, tvit.TINY_VIT, dtype=torch.float64, device=device,
+                                scan_blocks=True)
+
+    cls = KFACLinearOperator if op == "kfac" else EKFACLinearOperator
+    out = []
+    for device in ("cpu", cuda):
+        p = build(device)
+        A = cls(p.model, p.loss_fn, p.kfac_params, p.data, fisher_type="type-2",
+                check_deterministic=False)
+        V = torch.randn((A.shape[1], 2), generator=torch.Generator().manual_seed(7),
+                        dtype=torch.float64)
+        out.append((A @ V.to(device)).cpu())
+    assert rel_err(out[1], out[0]) < 1e-10
+
+
+@pytest.mark.cuda
+def test_fused_gpt_ggn_under_forward_mode_on_card(cuda):
+    """The fused GPT's GGN (forward mode through SDPA's pinned math
+    backend) equals the einsum GPT's on the card."""
+    out = []
+    for impl in ("fused", "einsum"):
+        p = tgpt.shakespeare_nanogpt(batch_size=2, config=_STACKED_GPT, device=cuda,
+                                     attention_impl=impl, scan_blocks=True)
+        G = GGNLinearOperator(p.model, p.loss_fn, p.params, p.data)
+        v = torch.randn(G.shape[1], generator=torch.Generator().manual_seed(3)).to(cuda)
+        out.append(G @ v)
+    assert rel_err(out[0], out[1]) < 1e-5

@@ -111,13 +111,14 @@ def test_logits_match_jax(case, impl):
 
 
 def test_from_jax_params_round_trip(case):
-    """Dense kernels are transposed, embedding tables and norm parameters
-    pass unchanged, and the mapping inverts exactly."""
+    """Dense kernels are transposed, embedding tables (the ``weight`` of the
+    ``nn.Embedding`` modules ``wte``/``wpe``) and norm parameters pass
+    unchanged, and the mapping inverts exactly."""
     model = _port_model(case["params"], "einsum")
     named = from_jax_params(case["params"], model)
-    assert named["wte"].shape == (GEOMETRY["vocab_size"], GEOMETRY["n_embd"])
-    assert named["wpe"].shape == (GEOMETRY["block_size"], GEOMETRY["n_embd"])
-    np.testing.assert_array_equal(named["wte"].numpy(), case["params"]["wte"])
+    assert named["wte.weight"].shape == (GEOMETRY["vocab_size"], GEOMETRY["n_embd"])
+    assert named["wpe.weight"].shape == (GEOMETRY["block_size"], GEOMETRY["n_embd"])
+    np.testing.assert_array_equal(named["wte.weight"].numpy(), case["params"]["wte"])
     np.testing.assert_array_equal(named["h1.ln2.scale"].numpy(), case["params"]["h1"]["ln2"]["scale"])
     np.testing.assert_array_equal(named["h0.mlp_fc.weight"].numpy(), case["params"]["h0"]["mlp_fc"]["W"].T)
     back = to_jax_params(named, model)
@@ -235,7 +236,9 @@ def test_gpt2_small_kfac_selection():
 
 
 def test_attention_impls():
-    with pytest.raises(NotImplementedError, match="fused"):
-        tgpt.GPT(tgpt.GPTConfig(**GEOMETRY, attention_impl="fused"))
+    """``"fused"`` (SDPA with its math backend pinned) builds; an unknown
+    name is refused."""
+    model = tgpt.GPT(tgpt.GPTConfig(**GEOMETRY, attention_impl="fused"))
+    assert model.h0.attention_impl == "fused"
     with pytest.raises(ValueError, match="attention_impl"):
         tgpt.GPT(tgpt.GPTConfig(**GEOMETRY, attention_impl="dense"))
