@@ -110,7 +110,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     matvec, exact inverse, GGN matvec; the patch conv rejected by the conv
     kernel's gate, so no conv launch); KFAC and EKFAC on the card against
     the CPU in float64 (tiny stacked GPT with embeddings, tiny stacked ViT);
-12. prints a JSON line of kernel results and, last, a JSON status line.
+12. the collector's function-level uses (``collector_phases``, one JSON
+    line per item), float32, on the unrolled flash GPT-2 small (batch 4,
+    T = 1024): bias-only KFAC (MC) over the 48 block biases, each ``ggT``
+    against the bias block of the full separate-W+b KFAC built with the
+    same generator seed (1e-5); the same GPT with every block ``nn.Linear``
+    swapped for HuggingFace's ``Conv1D`` (``addmm`` on ``x.view(-1, in)``
+    with the transposed weight ``[in, out]``): logits (1e-5; and 1e-6 for
+    the same two layouts in float64 with einsum attention, since ``x @ W``
+    and ``x @ W^T`` are float32 GEMMs of different summation order), KFAC
+    factors and the matvec at the transposed vector (1e-5) against the
+    ``nn.Linear`` GPT's; each build's time and flash launches (counted from
+    0 over it, at least one per layer each), both matvecs' times;
+13. prints a JSON line of kernel results and, last, a JSON status line.
 
 Each kernel's bound is the larger of its bytes (each input read once, each
 output written once) at 3.35 TB/s and its float32 products at the card's
@@ -340,12 +352,16 @@ def main() -> None:
     marks.append(time.perf_counter())
     stacked_launches = transformer_phases(torch, dev, smi)
     marks.append(time.perf_counter())
+    collector_launches = collector_phases(torch, dev, smi)
+    marks.append(time.perf_counter())
     for entry in entries:
         entry["launches"] += phase_launches[entry["name"]]
         entry["launches"] += stacked_launches.get(entry["name"], 0)
+        entry["launches"] += collector_launches.get(entry["name"], 0)
     print("phase seconds: ResNet-18 kernel and KFAC {:.1f}, GPT kernels and KFAC {:.1f}, "
           "curvature operators {:.1f}, solvers {:.1f}, KFAC family {:.1f}, estimators, "
-          "GGN diagonal and held linearizations {:.1f}, transformer family {:.1f}".format(
+          "GGN diagonal and held linearizations {:.1f}, transformer family {:.1f}, "
+          "collector (bias-only, Conv1D layout) {:.1f}".format(
               *(b - a for a, b in zip(marks, marks[1:]))))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
@@ -2454,6 +2470,162 @@ def transformers_card_against_cpu(torch, dev) -> float:
                                    f"(tol {CARD_CPU_TOL})")
     return worst
 
+
+# ---------------------------------------------------------------------- #
+# the collector's bias-only groups and HuggingFace's Conv1D layout
+# ---------------------------------------------------------------------- #
+BIAS_ONLY_TOL = 1e-5  # bias-only ggT against the full KFAC's bias blocks, relative
+HF_LOGITS_TOL = 1e-6  # Conv1D-layout logits against nn.Linear logits, float64 einsum GPT
+HF_TOL = 1e-5  # float32 flash GPTs: logits, KFAC factors and matvecs (x @ W and
+# x @ W^T are different float32 GEMMs: their logits differ by 1.3e-6)
+
+
+def hf_conv1d_class(torch):
+    """HuggingFace GPT-2's ``Conv1D``: ``weight [in, out]`` applied by
+    ``torch.addmm(bias, x.view(-1, in), weight)`` (``transformers`` is not
+    on the card's machine, so its forward is restated here)."""
+
+    class Conv1D(torch.nn.Module):
+        def __init__(self, linear):
+            super().__init__()
+            self.nf = linear.out_features
+            self.weight = torch.nn.Parameter(linear.weight.detach().T.contiguous())
+            self.bias = torch.nn.Parameter(linear.bias.detach().clone())
+
+        def forward(self, x):  # noqa: D102
+            size_out = x.size()[:-1] + (self.nf,)
+            x = torch.addmm(self.bias, x.view(-1, x.size(-1)), self.weight)
+            return x.view(size_out)
+
+    return Conv1D
+
+
+def to_conv1d_layout(torch, problem):
+    """``problem``'s unrolled GPT with every block ``nn.Linear`` swapped for
+    a ``Conv1D`` holding its transposed weight and its bias, in place;
+    returns its KFAC parameters (the same names)."""
+    Conv1D = hf_conv1d_class(torch)
+    model = problem.model
+    for i in range(model.config.n_layer):
+        block = getattr(model, f"h{i}")
+        for name in ("attn_qkv", "attn_proj", "mlp_fc", "mlp_proj"):
+            setattr(block, name, Conv1D(getattr(block, name)))
+    params = dict(model.named_parameters())
+    return {n: params[n] for n in problem.kfac_params}
+
+
+def co_report(item: str, **fields) -> None:
+    """One JSON line of the collector phase."""
+    print(json.dumps({"collector_phase": item, **fields}))
+
+
+def collector_phases(torch, dev, smi: str) -> dict:
+    """Bias-only KFAC over the flash GPT-2 small's 48 block biases against
+    the full KFAC's bias blocks, and the GPT in HuggingFace's Conv1D layout
+    against its ``nn.Linear`` form (logits, KFAC factors, matvec); float32,
+    TF32 off, MC with the same generator seed, every gate fatal. Each build
+    is a main path with its flash launches counted from 0 over it; returns
+    their sums by kernel."""
+    from curvlinops_tpu_torch import CrossEntropyLoss, KFACLinearOperator
+    from curvlinops_tpu_torch.models import flash_attention as fa
+    from curvlinops_tpu_torch.models import gpt as tgpt
+
+    config = GPT_CONFIG or tgpt.GPTConfig()
+    total = {n: 0 for n in fa.launches}
+
+    def counted(build):
+        for n in fa.launches:
+            fa.launches[n] = 0
+        out, ms = timed(torch, build)
+        launches = dict(fa.launches)
+        for n, c in launches.items():
+            total[n] += c
+        if min(launches.values()) < config.n_layer:
+            raise RuntimeError(f"a flash kernel ran fewer than {config.n_layer} times: {launches}")
+        return out, ms, launches
+
+    def kfac(model, params, data, **kw):
+        return KFACLinearOperator(model, CrossEntropyLoss("mean"), params, data,
+                                  fisher_type="mc", check_deterministic=False, **kw)
+
+    # ---- bias-only KFAC against the full KFAC's bias blocks ------------- #
+    p = tgpt.shakespeare_nanogpt(GPT_BATCH, config, seed=0, device=dev, attention_impl="flash")
+    biases = {n: t for n, t in p.kfac_params.items() if n.endswith(".bias")}
+    full, full_ms, full_launches = counted(lambda: kfac(p.model, p.kfac_params, p.data))
+    only, only_ms, only_launches = counted(lambda: kfac(p.model, biases, p.data))
+    full_ggT = {g.bias_path: full._ggT[gi] for gi, g in enumerate(full.groups)
+                if g.weight_path is None}
+    errs = {g.bias_path: rel_err(only._ggT[gi], full_ggT[g.bias_path])
+            for gi, g in enumerate(only.groups)}
+    worst = max(errs.values())
+    co_report("bias-only KFAC vs the full KFAC's bias blocks, flash GPT-2 small",
+              batch=GPT_BATCH, T=config.block_size, layers=config.n_layer,
+              bias_groups=len(only.groups), full_groups=len(full.groups),
+              full_build_ms=full_ms, bias_only_build_ms=only_ms,
+              full_flash_launches=full_launches, bias_only_flash_launches=only_launches,
+              worst_ggT_rel_err=worst, tol=BIAS_ONLY_TOL, card=smi)
+    if not (len(only.groups) == 4 * config.n_layer == len(errs)
+            and all(g.weight_path is None and g.d_in == 1 for g in only.groups)
+            and worst < BIAS_ONLY_TOL):
+        raise RuntimeError(f"bias-only KFAC: {len(only.groups)} groups, worst ggT {worst}")
+    del full, only, full_ggT
+    torch.cuda.empty_cache()
+
+    # ---- the GPT in HuggingFace's Conv1D layout -------------------------- #
+    X = p.data[0][0]
+    logits64 = []
+    for layout in ("linear", "conv1d"):  # the same function in float64: einsum attention
+        q = tgpt.shakespeare_nanogpt(GPT_BATCH, config, seed=0, dtype=torch.float64, device=dev,
+                                     attention_impl="einsum")
+        if layout == "conv1d":
+            to_conv1d_layout(torch, q)
+        with torch.no_grad():
+            logits64.append(q.model(X))
+        del q
+    logits64_err = rel_err(logits64[1], logits64[0])
+    del logits64
+    torch.cuda.empty_cache()
+    hf = tgpt.shakespeare_nanogpt(GPT_BATCH, config, seed=0, device=dev, attention_impl="flash")
+    hf_kfac_params = to_conv1d_layout(torch, hf)
+    with torch.no_grad():
+        logits_err = rel_err(hf.model(X), p.model(X))
+    lin, lin_ms, lin_launches = counted(lambda: kfac(p.model, p.kfac_params, p.data))
+    conv, conv_ms, conv_launches = counted(lambda: kfac(hf.model, hf_kfac_params, hf.data))
+    uses = [u for g in conv.groups for u in g.uses]
+    rows_ok = all(u.name.endswith(":addmm") and u.meta.get("merged_rows")
+                  and u.meta.get("batch_major") for u in uses)
+    index = {g.key: gi for gi, g in enumerate(lin.groups)}
+    factor_err = 0.0
+    for gi, g in enumerate(conv.groups):
+        for mine, theirs in ((conv._aaT, lin._aaT), (conv._ggT, lin._ggT)):
+            if gi in mine:
+                factor_err = max(factor_err, rel_err(mine[gi], theirs[index[g.key]]))
+    gen = torch.Generator(dev).manual_seed(5)
+    v = {n: torch.randn(t.shape, generator=gen, device=dev) for n, t in p.kfac_params.items()}
+    v_hf = {n: t.T.contiguous() if n.endswith(".weight") else t for n, t in v.items()}
+    out, out_hf = lin @ v, conv @ v_hf
+    matvec_err = rel_err(flat({n: (t.T if n.endswith(".weight") else t)
+                               for n, t in out_hf.items()}), flat(out))
+    lin_matvec_ms = time_ms(lambda: lin @ v, torch, reps=10)
+    conv_matvec_ms = time_ms(lambda: conv @ v_hf, torch, reps=10)
+    co_report("HuggingFace Conv1D layout vs nn.Linear, flash GPT-2 small",
+              batch=GPT_BATCH, T=config.block_size, layers=config.n_layer,
+              logits_float64_einsum_rel_err=logits64_err, logits_float64_tol=HF_LOGITS_TOL,
+              logits_float32_flash_rel_err=logits_err,
+              groups=len(conv.groups), addmm_uses_on_batch_major_merged_rows=rows_ok,
+              factors_worst_rel_err=factor_err, matvec_rel_err=matvec_err, tol=HF_TOL,
+              linear_build_ms=lin_ms, conv1d_build_ms=conv_ms,
+              linear_flash_launches=lin_launches, conv1d_flash_launches=conv_launches,
+              linear_matvec_ms_median_of_10=lin_matvec_ms,
+              conv1d_matvec_ms_median_of_10=conv_matvec_ms, card=smi)
+    if not (logits64_err < HF_LOGITS_TOL and logits_err < HF_TOL and rows_ok
+            and len(conv.groups) == len(lin.groups) and factor_err < HF_TOL
+            and matvec_err < HF_TOL):
+        raise RuntimeError(f"Conv1D layout: logits float64 {logits64_err}, float32 {logits_err}, "
+                           f"rows {rows_ok}, factors {factor_err}, matvec {matvec_err}")
+    del lin, conv, hf, p, out, out_hf
+    torch.cuda.empty_cache()
+    return {f"flash_attention_{n}": c for n, c in total.items()}
 
 if __name__ == "__main__":
     main()

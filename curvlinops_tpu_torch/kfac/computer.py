@@ -18,6 +18,7 @@ covariance as the diagonal vector of token counts ``[V]``.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -96,17 +97,31 @@ def _stacked_uses(key: str, uses: list[LayerUse]) -> tuple[list[LayerUse], int]:
     return by_slice, stack
 
 
+def _canonical_layout(u: LayerUse, shape: tuple) -> torch.Tensor:
+    """Where a dense use puts each element of its ``shape``-d weight in the
+    canonical ``[d_out, d_in]`` block."""
+    return kmath.canonical_dense_weight(torch.arange(math.prod(shape)).reshape(shape), u.meta)
+
+
 def build_groups(layers: list[LayerUse], separate_weight_and_bias: bool) -> list[ParamGroup]:
     """Merge layer uses into parameter groups (uses of one weight merge).
 
+    A bias-only use (``weight_path is None``) forms a bias block of its own;
+    the uses of one bias merge (the JAX package's ``build_groups``).
+
     Raises:
-        ValueError: On a weight tied across layer kinds or canonical shapes,
-            conflicting biases in a tied joint group, or a scan-stacked
-            weight whose slices are not each used exactly once.
+        ValueError: On a weight tied across layer kinds, canonical shapes or
+            canonical layouts, conflicting biases in a tied joint group, a
+            scan-stacked weight whose slices are not each used exactly once,
+            or a bias-only bias tied across outputs of different widths.
     """
     by_weight: dict[str, list[LayerUse]] = {}
+    bias_only: dict[str, list[LayerUse]] = {}
     for use in layers:
-        by_weight.setdefault(use.weight_path, []).append(use)
+        if use.weight_path is None:
+            bias_only.setdefault(use.bias_path, []).append(use)
+        else:
+            by_weight.setdefault(use.weight_path, []).append(use)
 
     groups: list[ParamGroup] = []
     for key, uses in by_weight.items():
@@ -121,6 +136,15 @@ def build_groups(layers: list[LayerUse], separate_weight_and_bias: bool) -> list
             raise ValueError(
                 f"Weight {key} is tied across layers with different canonical shapes."
             )
+        if uses[0].kind == "dense" and not stack and len(uses) > 1:
+            shape = uses[0].meta.get("w_leaf_shape", (d_out, d_in))
+            layout = _canonical_layout(uses[0], shape)
+            if any(not torch.equal(_canonical_layout(u, shape), layout) for u in uses[1:]):
+                raise ValueError(
+                    f"Weight {key} is tied across layers that contract different "
+                    "axes of it (e.g. x @ W and x @ W.T); KFAC cannot merge their "
+                    "covariances."
+                )
         bias_paths = sorted({u.bias_path for u in uses if u.bias_path is not None})
         name = uses[0].name if stack else "+".join(u.name for u in uses)
         if separate_weight_and_bias:
@@ -146,7 +170,25 @@ def build_groups(layers: list[LayerUse], separate_weight_and_bias: bool) -> list
                     name, key, bias_path, uses, joint, d_in + joint, d_out, stack, input_diag
                 )
             )
+    for key, uses in bias_only.items():
+        d_outs = {u.meta["d_out"] for u in uses}
+        if len(d_outs) > 1:
+            raise ValueError(
+                f"Bias {key} is tied across outputs with different feature counts "
+                f"{sorted(d_outs)}; KFAC cannot merge their blocks."
+            )
+        name = "+".join(u.name for u in uses)
+        groups.append(ParamGroup(name + ".bias", None, key, uses, False, 1, d_outs.pop()))
     return groups
+
+
+def rows_not_batch_major(groups: list[ParamGroup]) -> list[str]:
+    """The uses whose rows merge data in an order not proven batch-major
+    (``meta["merged_rows"]`` without ``meta["batch_major"]``)."""
+    return [
+        u.name for g in groups for u in g.uses
+        if u.meta.get("merged_rows") and not u.meta.get("batch_major")
+    ]
 
 
 class KFACComputer:
@@ -218,12 +260,33 @@ class KFACComputer:
                 "(averaging one-hot inputs over the sharing axis destroys the "
                 "exact-diagonal covariance structure)."
             )
+        if self.kfac_approx == KFACType.REDUCE:
+            self.require_batch_major("KFACType.REDUCE")
         self._check_deterministic = check_deterministic
+
+    def require_batch_major(self, what: str) -> None:
+        """Refuse ``what``, which averages or sums per datum, on uses whose
+        merged rows are not proven to be grouped by datum.
+
+        Raises:
+            ValueError: Naming those uses.
+        """
+        names = rows_not_batch_major(self.groups)
+        if names:
+            raise ValueError(
+                f"{what} needs each layer's rows grouped by datum, but the rows of "
+                f"{names} merge the batch axis with others in an order not proven "
+                "batch-major (a view of all of a [batch, ...] tensor whose batch axis "
+                "is outermost in memory); use KFACType.EXPAND KFAC, or keep the "
+                "batch axis leading."
+            )
 
     def _get_traced(self, X: torch.Tensor) -> TracedModel:
         key = (tuple(X.shape), X.dtype)
         if key not in self._traced_cache:
-            self._traced_cache[key] = TracedModel(self.model, self.params, X)
+            self._traced_cache[key] = TracedModel(
+                self.model, self.params, X, batch_size=self.batch_size_fn(X)
+            )
         return self._traced_cache[key]
 
     def _unflatten_rows(self, G_rows: torch.Tensor, pred_shape: tuple) -> torch.Tensor:

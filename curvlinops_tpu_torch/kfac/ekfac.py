@@ -79,6 +79,7 @@ class EKFACComputer(KFACComputer):
                 "EKFAC does not support embedding lookups inside a scan; use "
                 "KFAC or hoist the lookup out of the scan."
             )
+        self.require_batch_major("EKFAC's eigenvalue correction")
         # per-sample gradients need independent per-datum loss terms
         X0, _ = next(iter(self.data))
         pred_shape = self._get_traced(X0).output_shape

@@ -153,6 +153,7 @@ class KFOCComputer(KFACComputer):
             )
         if any(group.input_diag for group in self.groups):
             raise ValueError("KFOC does not support embedding layers; use KFAC.")
+        self.require_batch_major("KFOC")
         n_batches = sum(1 for _ in self.data)
         if n_batches != 1:
             raise ValueError(f"KFOC requires a single batch, got {n_batches}.")

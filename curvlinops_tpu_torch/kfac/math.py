@@ -55,15 +55,70 @@ def canonical_conv_weight_inverse(W_canon: torch.Tensor, meta: dict) -> torch.Te
     return W_canon.reshape(O, KH, KW, C, *W_canon.shape[2:]).permute(0, 3, 1, 2, *rest)
 
 
-def canonical_dense_weight(W: torch.Tensor) -> torch.Tensor:
-    """A linear weight ``[out, in]`` is already canonical ``[d_out, d_in]``."""
+def apply_weight_views(W: torch.Tensor, views) -> torch.Tensor:
+    """Replay the views between a weight leaf and its layer operand
+    (``("reshape", shape, in_shape)`` and ``("permute", dims, in_shape)``
+    steps, as the collector records them); trailing axes beyond the leaf's
+    (columns) ride along."""
+    for kind, arg, in_shape in views:
+        cols = W.shape[len(in_shape):]
+        if kind == "reshape":
+            W = W.reshape(*arg, *cols)
+        elif kind == "permute":
+            W = W.permute(*arg, *range(len(arg), W.ndim))
+        else:
+            raise ValueError(f"Non-invertible weight view {kind!r}.")
     return W
 
 
+def invert_weight_views(W: torch.Tensor, views, leaf_ndim: int) -> torch.Tensor:
+    """Inverse of :func:`apply_weight_views`; ``W`` holds the operand's
+    layout in its first axes and columns after them."""
+    ndim = len(views[-1][1]) if views else leaf_ndim
+    for kind, arg, in_shape in reversed(views):
+        cols = W.shape[ndim:]
+        if kind == "reshape":
+            W = W.reshape(*in_shape, *cols)
+        elif kind == "permute":
+            inv = [arg.index(d) for d in range(len(arg))]
+            W = W.permute(*inv, *range(len(arg), W.ndim))
+        else:
+            raise ValueError(f"Non-invertible weight view {kind!r}.")
+        ndim = len(in_shape)
+    return W
+
+
+def canonical_dense_weight(W: torch.Tensor, meta: dict) -> torch.Tensor:
+    """A dense weight leaf (with trailing column axes) to canonical
+    ``[d_out, d_in, *cols]``.
+
+    A module's ``[out, in]`` weight (also a stacked ``[L, out, in]`` one) is
+    already canonical. A function-level use replays its views to the
+    operand and orders the operand's free axes before its contracted ones
+    (``w_free + w_contract``): HuggingFace's ``[in, out]`` ``Conv1D`` weight
+    and ``W.T`` land in the space of an ``nn.Linear`` weight.
+    """
+    if "w_free" not in meta:
+        return W
+    n = len(meta["w_leaf_shape"])
+    cols = W.shape[n:]
+    W = apply_weight_views(W, meta["w_views"])
+    perm = meta["w_free"] + meta["w_contract"]
+    W = W.permute(*perm, *range(len(perm), W.ndim))
+    return W.reshape(meta["d_out"], meta["d_in"], *cols)
+
+
 def canonical_dense_weight_inverse(W_canon: torch.Tensor, meta: dict) -> torch.Tensor:
-    """Inverse of :func:`canonical_dense_weight` (the identity)."""
-    del meta
-    return W_canon
+    """Inverse of :func:`canonical_dense_weight` (back to the leaf layout)."""
+    if "w_free" not in meta:
+        return W_canon
+    cols = W_canon.shape[2:]
+    op_shape = meta["w_operand_shape"]
+    perm = meta["w_free"] + meta["w_contract"]
+    inv = [perm.index(d) for d in range(len(perm))]
+    W = W_canon.reshape(*[op_shape[d] for d in perm], *cols)
+    W = W.permute(*inv, *range(len(perm), W.ndim))
+    return invert_weight_views(W, meta["w_views"], len(meta["w_leaf_shape"]))
 
 
 def canonical_embedding_weight(W: torch.Tensor) -> torch.Tensor:

@@ -108,10 +108,11 @@ def make_to_canonical(
             elif kind == "embedding":
                 canon = kmath.canonical_embedding_weight(W)
             else:  # dense, also stacked [L, d_out, d_in]
-                canon = kmath.canonical_dense_weight(W)
+                canon = kmath.canonical_dense_weight(W, group.uses[0].meta)
             if group.joint:
-                b = v[group.bias_path]
-                canon = torch.cat([canon, b.unsqueeze(2 if group.stack else 1)], dim=2 if group.stack else 1)
+                bp, lead = group.bias_path, (group.stack,) if group.stack else ()
+                b = v[bp].reshape(*lead, group.d_out, *v[bp].shape[ndims[bp]:])
+                canon = torch.cat([canon, b.unsqueeze(len(lead) + 1)], dim=len(lead) + 1)
             blocks.append(flat(canon, 3 if group.stack else 2))
         return tuple(blocks)
 
@@ -126,7 +127,8 @@ def make_to_canonical(
             mat = block.reshape(*lead, group.d_out, group.d_in, *cols)
             last = len(lead) + 1  # the d_in axis
             if group.joint:
-                out[group.bias_path] = mat.select(last, -1)
+                bias = mat.select(last, -1)
+                out[group.bias_path] = bias.reshape(*params[group.bias_path].shape, *cols)
                 mat = mat.narrow(last, 0, group.d_in - 1)
             use = group.uses[0]
             if use.kind == "conv":

@@ -13,7 +13,11 @@ estimator's core, the exact GGN diagonal and the held linearizations on the
 card; the transformer family: the stacked flash GPT's kernel launches and
 factors against the unrolled GPT's, KFAC and EKFAC on the stacked GPT with
 embeddings and the stacked ViT against the CPU, and the fused GPT's GGN
-through SDPA's pinned backend under forward mode.
+through SDPA's pinned backend under forward mode; the collector's
+function-level uses: bias-only KFAC against the full KFAC's bias blocks and
+an MLP in HuggingFace's ``Conv1D`` layout against its ``nn.Linear`` form,
+each on the card against the CPU, and the flash GPT with ``Conv1D`` layers,
+whose ``addmm`` taps feed the flash kernels' factor pass.
 
 These tests need the card: they skip without one. The card's machine has no
 JAX, so this file imports only the port, and runs there without the suite's
@@ -735,3 +739,107 @@ def test_fused_gpt_ggn_under_forward_mode_on_card(cuda):
         v = torch.randn(G.shape[1], generator=torch.Generator().manual_seed(3)).to(cuda)
         out.append(G @ v)
     assert rel_err(out[0], out[1]) < 1e-5
+
+
+# ---------------------------------------------------------------------- #
+# the collector's bias-only groups and HuggingFace's Conv1D layout
+# ---------------------------------------------------------------------- #
+class _Conv1D(torch.nn.Module):
+    """HuggingFace GPT-2's ``Conv1D``: ``weight [in, out]``, ``addmm`` on the
+    rows of ``x``; built from an ``nn.Linear`` (its weight transposed)."""
+
+    def __init__(self, linear):
+        super().__init__()
+        self.nf = linear.out_features
+        self.weight = torch.nn.Parameter(linear.weight.detach().T.contiguous())
+        self.bias = torch.nn.Parameter(linear.bias.detach().clone())
+
+    def forward(self, x):  # noqa: D102
+        out = torch.addmm(self.bias, x.view(-1, x.size(-1)), self.weight)
+        return out.view(*x.shape[:-1], self.nf)
+
+
+def _conv1d_layout(model):
+    """Every ``nn.Linear`` of ``model`` swapped for a ``Conv1D``, in place."""
+    for name, mod in list(model.named_modules()):
+        for child, sub in list(mod.named_children()):
+            if type(sub) is torch.nn.Linear and sub.bias is not None:
+                setattr(mod, child, _Conv1D(sub))
+    return model
+
+
+def _seq_mlp(device, seed=0):
+    """A tanh MLP 6 -> 8 -> 3 over ``[4, 5, 6]`` sequences, float64, MSE."""
+    gen = torch.Generator().manual_seed(seed)
+    model = torch.nn.Sequential(torch.nn.Linear(6, 8), torch.nn.Tanh(), torch.nn.Linear(8, 3))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen))
+    X, y = torch.randn(4, 5, 6, generator=gen), torch.randn(4, 5, 3, generator=gen)
+    return model.double().to(device), [(X.double().to(device), y.double().to(device))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bias_only", "conv1d"])
+def test_collector_function_uses_card_matches_cpu(cuda, case):
+    """Bias-only KFAC (equal to the full KFAC's bias blocks) and the MLP in
+    the ``Conv1D`` layout (equal to the ``nn.Linear`` MLP at the transposed
+    vector): float64, type-2, the card against the CPU to 1e-12."""
+    from curvlinops_tpu_torch.losses import MSELoss
+
+    out = {}
+    for device in ("cpu", cuda):
+        model, data = _seq_mlp(device)
+        params = dict(model.named_parameters())
+        full = KFACLinearOperator(model, MSELoss("mean"), params, data, fisher_type="type-2")
+        if case == "bias_only":
+            biases = {n: p for n, p in params.items() if n.endswith("bias")}
+            op = KFACLinearOperator(model, MSELoss("mean"), biases, data, fisher_type="type-2")
+            v = {n: torch.ones_like(p) for n, p in biases.items()}
+            ref = full @ {n: v.get(n, torch.zeros_like(p)) for n, p in params.items()}
+            got = op @ v
+            assert max(rel_err(got[n], ref[n]) for n in v) < 1e-12
+        else:
+            hf = _conv1d_layout(_seq_mlp(device)[0])
+            hf_params = dict(hf.named_parameters())
+            op = KFACLinearOperator(hf, MSELoss("mean"), hf_params, data, fisher_type="type-2")
+            v = {n: torch.randn(p.shape, generator=torch.Generator().manual_seed(1),
+                                dtype=p.dtype).to(device) for n, p in params.items()}
+            ref = full @ v
+            got = op @ {n: (t.T.contiguous() if n.endswith("weight") else t)
+                        for n, t in v.items()}
+            got = {n: (t.T if n.endswith("weight") else t) for n, t in got.items()}
+            assert max(rel_err(got[n], ref[n]) for n in v) < 1e-12
+        out[device if device == "cpu" else "card"] = torch.cat(
+            [t.reshape(-1).cpu() for t in got.values()])
+    assert rel_err(out["card"], out["cpu"]) < 1e-12
+
+
+@pytest.mark.cuda
+def test_conv1d_flash_gpt_taps_on_card(cuda):
+    """The flash GPT with ``Conv1D`` block layers: the collector records each
+    ``addmm`` as a dense use on batch-major merged rows, the factor pass
+    launches every flash kernel once per layer or more, and the factors
+    equal those of the ``nn.Linear`` GPT."""
+    ops = {}
+    for layout in ("linear", "conv1d"):
+        problem = tgpt.shakespeare_nanogpt(batch_size=2, config=_STACKED_GPT, device=cuda,
+                                           attention_impl="flash")
+        params = problem.kfac_params
+        if layout == "conv1d":
+            _conv1d_layout(problem.model)
+            named = dict(problem.model.named_parameters())
+            params = {n: named[n] for n in params}
+        for n in tfa.launches:
+            tfa.launches[n] = 0
+        ops[layout] = KFACLinearOperator(problem.model, problem.loss_fn, params, problem.data,
+                                         fisher_type="mc", check_deterministic=False)
+        assert min(tfa.launches.values()) >= _STACKED_GPT.n_layer, tfa.launches
+    uses = [u for g in ops["conv1d"].groups for u in g.uses]
+    assert all(u.name.endswith(":addmm") and u.meta["batch_major"] for u in uses)
+    index = {g.key: gi for gi, g in enumerate(ops["linear"].groups)}
+    for gi, g in enumerate(ops["conv1d"].groups):
+        for mine, theirs in ((ops["conv1d"]._aaT, ops["linear"]._aaT),
+                             (ops["conv1d"]._ggT, ops["linear"]._ggT)):
+            if gi in mine:
+                assert rel_err(mine[gi], theirs[index[g.key]]) < 1e-5, g.name

@@ -17,6 +17,7 @@ import pytest
 import torch
 from torch import nn
 
+from curvlinops_tpu.models import gpt as jgpt
 from curvlinops_tpu.models import resnet as jresnet
 from curvlinops_tpu_torch.models import common as tcommon
 from curvlinops_tpu_torch.models import resnet as tresnet
@@ -91,17 +92,11 @@ def jax_name(path) -> str:
     return ".".join(parts[:-1] + [{"W": "weight", "b": "bias"}.get(parts[-1], parts[-1])])
 
 
-def narrow_resnet(seed: int = 0, batch: int = 2, hw: int = 16, calib: int = 8) -> dict:
-    """A narrow ResNet in both packages with the same (calibrated) weights.
-
-    The port's ``models/resnet.py::narrow_resnet`` geometry: one basic block
-    per stage, widths 16/16/32/32, a 16-channel stem. The JAX side is built
-    from ``models/resnet.py``'s own block initialisers. BatchNorm is
-    calibrated on ``calib`` images, of which the first ``batch`` are the
-    data: calibrating on two 1x1 maps would leave near-zero variances whose
-    ``1/sqrt(var + eps)`` amplifies float32 roundoff a few hundred times.
-    """
-    keys = jax.random.split(jax.random.key(seed), 8)
+@jax.jit
+def _narrow_resnet_params(key) -> dict:
+    """The narrow ResNet's JAX parameters from ``models/resnet.py``'s own
+    initialisers, as one compiled program (op by op they take seconds)."""
+    keys = jax.random.split(key, 8)
     params = {
         "conv1": {"W": jresnet._init_conv(keys[0], 7, 7, 3, NARROW_WIDTHS[0])},
         "bn1": jresnet._init_bn(NARROW_WIDTHS[0]),
@@ -116,13 +111,30 @@ def narrow_resnet(seed: int = 0, batch: int = 2, hw: int = 16, calib: int = 8) -
         "W": jresnet.he_normal(keys[5], (c_in, 10), c_in),
         "b": 0.1 * jax.random.normal(keys[6], (10,)),
     }
+    return params
+
+
+_calibrate_bn = jax.jit(partial(jresnet.calibrate_bn, block="basic"))
+
+
+def narrow_resnet(seed: int = 0, batch: int = 2, hw: int = 16, calib: int = 8) -> dict:
+    """A narrow ResNet in both packages with the same (calibrated) weights.
+
+    The port's ``models/resnet.py::narrow_resnet`` geometry: one basic block
+    per stage, widths 16/16/32/32, a 16-channel stem. The JAX side is built
+    from ``models/resnet.py``'s own block initialisers. BatchNorm is
+    calibrated on ``calib`` images, of which the first ``batch`` are the
+    data: calibrating on two 1x1 maps would leave near-zero variances whose
+    ``1/sqrt(var + eps)`` amplifies float32 roundoff a few hundred times.
+    """
+    params = _narrow_resnet_params(jax.random.key(seed))
     rng = np.random.default_rng(seed)
     X_calib = rng.uniform(size=(calib, hw, hw, 3)).astype(np.float32)
     X_nhwc = X_calib[:batch]
     y = rng.integers(0, 10, size=batch)
     apply_fn = partial(jresnet.resnet_apply, block="basic")
     uncalibrated = jax.tree.map(np.asarray, params)
-    params = jresnet.calibrate_bn(params, jnp.asarray(X_calib), block="basic")
+    params = _calibrate_bn(params, jnp.asarray(X_calib))
 
     model = tresnet.narrow_resnet()
     model.load_state_dict(tresnet.from_jax_params(jax.tree.map(np.asarray, params), model))
@@ -202,3 +214,52 @@ def random_jax_vector(params, seed: int):
     """A standard normal float32 numpy tree shaped like ``params``."""
     rng = np.random.default_rng(seed)
     return jax.tree.map(lambda p: rng.standard_normal(np.shape(p)).astype(np.float32), params)
+
+
+def dense_of(op) -> torch.Tensor:
+    """``op @ I``: an operator's dense matrix on its flat parameter order."""
+    return op @ torch.eye(op.shape[1], dtype=op.dtype)
+
+
+def blockdiag_projection(dense: torch.Tensor, params: dict, groups) -> torch.Tensor:
+    """``dense`` with every entry outside the KFAC block structure of
+    ``groups`` zeroed (a joint group keeps its weight-bias cross block), on
+    the flat order of ``params``: ``tests/test_kfac.py::blockdiag_projection``
+    by parameter name."""
+    offsets, start = {}, 0
+    for name, p in params.items():
+        offsets[name] = range(start, start + p.numel())
+        start += p.numel()
+    out = torch.zeros_like(dense)
+    for group in groups:
+        idx = list(offsets[group.weight_path]) if group.weight_path is not None else []
+        if group.bias_path is not None and (group.joint or group.weight_path is None):
+            idx += list(offsets[group.bias_path])
+        idx = torch.tensor(idx)
+        out[idx[:, None], idx[None, :]] = dense[idx[:, None], idx[None, :]]
+    return out
+
+
+def blockdiag_ggn(model, loss_fn, params: dict, data, groups) -> torch.Tensor:
+    """The port's dense GGN of ``model`` projected onto the KFAC blocks of
+    ``groups``: the exactness oracle of linear models under MSE."""
+    from curvlinops_tpu_torch.curvature.ggn import GGNLinearOperator
+
+    G = dense_of(GGNLinearOperator(model, loss_fn, params, data, check_deterministic=False))
+    return blockdiag_projection(G, params, groups)
+
+
+_jit_init_gpt = jax.jit(jgpt.init_gpt, static_argnums=1)
+
+
+def jax_gpt_init(config):
+    """``curvlinops_tpu.models.gpt.init_gpt(jax.random.key(0), config)`` as
+    one compiled program (op by op it takes seconds)."""
+    return _jit_init_gpt(jax.random.key(0), config)
+
+
+def jax_apply(A, v):
+    """``A @ v`` of a JAX package operator, traced into one ``jax.jit``
+    program (op by op, its first application compiles dozens of small
+    programs), as numpy."""
+    return jax.tree.map(np.asarray, jax.jit(lambda u: A @ u)(v))

@@ -24,7 +24,14 @@ from curvlinops_tpu_torch.curvature.loss_hessian import sample_grad_outputs
 from curvlinops_tpu_torch.kfac.operator import KFACLinearOperator
 from curvlinops_tpu_torch.losses import CrossEntropyLoss, MSELoss
 from curvlinops_tpu_torch.models.resnet import from_jax_params
-from tests.test_torch_helpers import capped_torch_threads, jax_name, narrow_resnet, rel_fro
+from tests.test_torch_helpers import (
+    blockdiag_ggn,
+    capped_torch_threads,
+    jax_name,
+    narrow_resnet,
+    rel_fro,
+    jax_apply,
+)
 
 _threads = capped_torch_threads()
 
@@ -114,7 +121,7 @@ def test_matvec_and_inverses_match_jax(resnet_case, mode):
         damping = DAMPING[mode]
         jA, tA, tol = jop.inverse(damping=damping, **kw), top.inverse(damping=damping, **kw), INVERSE_TOL
     _assert_same_vector(
-        tA @ resnet_case["v"], jA @ resnet_case["v_jax"], resnet_case["model"], tol, mode
+        tA @ resnet_case["v"], jax_apply(jA, resnet_case["v_jax"]), resnet_case["model"], tol, mode
     )
 
 
@@ -257,18 +264,49 @@ def test_state_dict_round_trip():
 
 
 class _ReadsWeightOutside(nn.Module):
+    """``fc``'s weight also reduced outside any layer call: refused."""
+
     def __init__(self):
         super().__init__()
         self.fc = nn.Linear(3, 2)
 
     def forward(self, x):
-        return self.fc(x) + x @ self.fc.weight.T
+        return self.fc(x) + self.fc.weight.sum(1)
+
+
+class _TiedOutsideUse(nn.Module):
+    """``fc`` on one input half and ``x2 @ fc.weight.T`` on the other: two
+    tied uses of one weight, one a module call, one a function call."""
+
+    def __init__(self):
+        super().__init__()
+        self.fc = nn.Linear(3, 2, dtype=torch.float64)
+
+    def forward(self, x):
+        x1, x2 = x.chunk(2, dim=-1)
+        return torch.cat([self.fc(x1), x2 @ self.fc.weight.T], dim=-1)
+
+
+def test_outside_read_is_a_tied_use():
+    """A weight read by ``x @ W.T`` outside its module is a second use of the
+    module's weight (once refused as a read outside the module): one datum,
+    independent tied paths, so type-2 EXPAND KFAC equals the block-diagonal
+    GGN (float64)."""
+    model = _TiedOutsideUse()
+    gen = torch.Generator().manual_seed(0)
+    X = torch.randn(1, 6, generator=gen, dtype=torch.float64)
+    y = torch.randn(1, 4, generator=gen, dtype=torch.float64)
+    params = dict(model.named_parameters())
+    kfac = KFACLinearOperator(model, MSELoss("sum"), params, [(X, y)], fisher_type="type-2")
+    assert [len(g.uses) for g in kfac.groups if g.weight_path] == [2]
+    expected = blockdiag_ggn(model, MSELoss("sum"), params, [(X, y)], kfac.groups)
+    assert rel_fro(kfac.todense(), expected) < 1e-10
 
 
 @pytest.mark.parametrize(
     "model,match",
     [
-        (_ReadsWeightOutside(), "read outside"),
+        (_ReadsWeightOutside(), r"read outside its layer calls by \['sum'\]"),
         (nn.Sequential(nn.Conv2d(3, 3, 3, dilation=2), nn.Flatten()), "dilation"),
         (nn.Sequential(nn.Conv2d(3, 3, 3, groups=3), nn.Flatten()), "groups"),
         (nn.Sequential(nn.LayerNorm(3), nn.Linear(3, 2)), "not the weight/bias"),

@@ -34,7 +34,13 @@ from curvlinops_tpu_torch.models import gpt as tgpt
 from curvlinops_tpu_torch.models.common import from_jax_params, to_jax_params
 from curvlinops_tpu_torch.models.resnet import kfac_restricted
 from curvlinops_tpu_torch.models.stack import scan
-from tests.test_torch_helpers import capped_torch_threads, jax_name, rel_fro
+from tests.test_torch_helpers import (
+    capped_torch_threads,
+    jax_apply,
+    jax_gpt_init,
+    jax_name,
+    rel_fro,
+)
 
 _threads = capped_torch_threads()
 
@@ -209,7 +215,7 @@ def test_gpt_with_embeddings_matches_jax(op_name):
     rng = np.random.default_rng(0)
     params = jax.tree.map(
         lambda a: np.asarray(a) + 0.1 * rng.standard_normal(a.shape).astype(np.float32),
-        jgpt.stack_gpt_blocks(jgpt.init_gpt(jax.random.key(0), config), config),
+        jgpt.stack_gpt_blocks(jax_gpt_init(config), config),
     )
     tokens = rng.integers(0, config.vocab_size, size=(2, config.block_size + 1))
     X, y = tokens[:, :-1], tokens[:, 1:].reshape(-1)
@@ -238,7 +244,7 @@ def test_gpt_with_embeddings_matches_jax(op_name):
     v = from_jax_params(v_jax, model)
     v = {n: v[n] for n in p}
     out = op @ v
-    expected = from_jax_params(jax.tree.map(np.asarray, jop @ v_jax), model)
+    expected = from_jax_params(jax_apply(jop, v_jax), model)
     for name in expected:
         assert rel_fro(out[name].detach().numpy(), expected[name].numpy()) < MATVEC_TOL, name
     inv = op.inverse(damping=0.1, use_exact_damping=True) if op_name == "kfac" else op.inverse(0.1)

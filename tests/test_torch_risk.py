@@ -1,9 +1,7 @@
 """The port's empirical-risk machinery against the JAX package, on the CPU.
 
 ``risk.py``'s gradient, normalisation, data statistics, column chunking and
-determinism rails; the MC Fisher (whose samples come from ``torch.Generator``
-and so differ from JAX's draws: it is checked against its own redrawn
-samples, for replay, and for convergence to the exact GGN); the port's
+determinism rails (the MC Fisher is in ``test_torch_risk_mc.py``); the port's
 dense oracles (``curvlinops_tpu_torch.examples``); the flash GPT's refusal
 of forward mode and the einsum GPT's GGN against JAX's; the float64
 parameter round trip; and the port's independence from JAX.
@@ -27,14 +25,13 @@ from curvlinops_tpu.models import gpt as jgpt
 from curvlinops_tpu.risk import CurvatureLinearOperator as JCurvature
 from curvlinops_tpu_torch import examples as texamples
 from curvlinops_tpu_torch.curvature.ggn import GGNLinearOperator
-from curvlinops_tpu_torch.curvature.loss_hessian import FisherType, make_grad_output_fn
 from curvlinops_tpu_torch.losses import CrossEntropyLoss
 from curvlinops_tpu_torch.models import gpt as tgpt
 from curvlinops_tpu_torch.models.common import from_jax_params, to_jax_params
 from curvlinops_tpu_torch.models.flash_attention import FORWARD_MODE_REFUSAL
 from curvlinops_tpu_torch.models.mlp import init_mlp, mlp_apply, mnist_mlp, tiny_mlp_problem
 from curvlinops_tpu_torch.models.resnet import ResNet, narrow_resnet_problem
-from curvlinops_tpu_torch.risk import CurvatureLinearOperator, batch_generator
+from curvlinops_tpu_torch.risk import CurvatureLinearOperator
 from tests.test_torch_curvature import (
     ATOL,
     OPERATORS,
@@ -45,12 +42,17 @@ from tests.test_torch_curvature import (
     port_operator,
 )
 from tests.test_torch_gpt import GEOMETRY
-from tests.test_torch_helpers import assert_close, capped_torch_threads, rel_fro
+from tests.test_torch_helpers import (
+    assert_close,
+    capped_torch_threads,
+    jax_apply,
+    jax_gpt_init,
+    rel_fro,
+)
 
 _threads = capped_torch_threads()
 
 REPO = Path(__file__).resolve().parents[1]
-MC_SEED = 7
 
 
 @pytest.fixture(scope="module")
@@ -212,70 +214,6 @@ def test_unported_and_invalid_arguments_raise(mlp_ce):
 
 
 # ---------------------------------------------------------------------- #
-# MC Fisher
-# ---------------------------------------------------------------------- #
-# mean and sum reductions; seq_ce_ignore has targets at CE's ignore_index
-MC_CASES = ["mlp_mse_mean", "mlp_ce_mean", "mlp_bce_mean", "mlp_ce_sum", "seq_ce_ignore"]
-
-
-@pytest.mark.parametrize("case_name", MC_CASES)
-def test_mc_fisher_matches_its_samples(case_name):
-    """``J^T (sum g g^T / c_batch) J`` with the port's own grad outputs,
-    redrawn from :func:`batch_generator`, and JAX's dense Jacobians. A mean
-    loss divides each batch by its loss terms, the non-ignored targets for
-    CE; the grad outputs already carry the per-datum share of them."""
-    case = make_case(case_name)
-    j, t = case["jax"], case["torch"]
-    loss_fn, mc = t["loss_fn"], 3
-    F = GGNLinearOperator(t["model"], loss_fn, t["params"], t["data"],
-                          mc_samples=mc, seed=MC_SEED)
-    expected = np.zeros(F.shape)
-    for idx, ((X, y), (Xj, _)) in enumerate(zip(t["data"], j["data"])):
-        pred = t["model"](t["params"], X)
-        G = make_grad_output_fn(loss_fn, FisherType.MC, mc)(
-            pred, y, batch_generator(MC_SEED, idx, torch.device("cpu"))
-        ).numpy().astype(np.float64).reshape(pred.shape[0], mc, -1)  # [N, mc, C * S]
-        N, D = G.shape[0], G.shape[2]
-        scale, share = (1.0, 1.0) if loss_fn.reduction == "sum" else (1.0 / N, N / F.num_data)
-        if isinstance(loss_fn, CrossEntropyLoss) and loss_fn.reduction == "mean":
-            scale *= y.numel() / int((y != loss_fn.ignore_index).sum())
-        middle = np.zeros((N * D, N * D))
-        for n in range(N):
-            middle[n * D:(n + 1) * D, n * D:(n + 1) * D] = scale * G[n].T @ G[n]
-        J = jexamples.dense_jacobian(j["model_fn"], j["params"], [(Xj, None)]).astype(np.float64)
-        expected += share * (J.T @ middle @ J)
-    assert_close(F @ torch.eye(F.shape[1]), expected, RTOL, ATOL, case_name)
-
-
-def test_mc_case_with_ignored_targets():
-    """``seq_ce_ignore`` holds ignored and kept targets in every batch."""
-    for _, y in make_case("seq_ce_ignore")["torch"]["data"]:
-        ignored = int((y == CrossEntropyLoss().ignore_index).sum())
-        assert 0 < ignored < y.numel()
-
-
-def test_mc_fisher_replays_its_samples(mlp_ce):
-    t = mlp_ce["torch"]
-    F = GGNLinearOperator(t["model"], t["loss_fn"], t["params"], t["data"],
-                          mc_samples=2, seed=MC_SEED)
-    v = torch.randn(F.shape[1], generator=torch.Generator().manual_seed(0))
-    assert torch.equal(F @ v, F @ v)
-
-
-@pytest.mark.parametrize("case_name", MC_CASES)
-def test_mc_fisher_converges_to_exact_ggn(case_name):
-    """5000 samples: within 0.12 of the exact GGN (``tests/test_ggn.py``)."""
-    case = make_case(case_name)
-    t = case["torch"]
-    dense = jax_oracle("ggn", case)
-    F = GGNLinearOperator(t["model"], t["loss_fn"], t["params"], t["data"],
-                          mc_samples=5000, check_deterministic=False)
-    v = np.random.default_rng(0).standard_normal(F.shape[1]).astype(np.float32)
-    scale = max(np.abs(dense @ v).max(), 1e-2)
-    assert np.abs(F @ v - dense @ v).max() / scale < 0.12
-
-
-# ---------------------------------------------------------------------- #
 # the port's dense oracles, the MLP problem
 # ---------------------------------------------------------------------- #
 @pytest.mark.parametrize("op", ["ggn", "hessian", "ef", "jacobian"])
@@ -364,7 +302,7 @@ def test_einsum_gpt_ggn_matches_jax():
     config = jgpt.GPTConfig(**GEOMETRY, attention_impl="einsum")
     params = jax.tree.map(
         lambda a: np.asarray(a) + 0.1 * rng.standard_normal(a.shape).astype(np.float32),
-        jgpt.init_gpt(jax.random.key(0), config),
+        jax_gpt_init(config),
     )
     tokens = rng.integers(0, GEOMETRY["vocab_size"], size=(2, GEOMETRY["block_size"] + 1))
     X, y = tokens[:, :-1], tokens[:, 1:].reshape(-1)
@@ -376,7 +314,7 @@ def test_einsum_gpt_ggn_matches_jax():
                           [(torch.from_numpy(X), torch.from_numpy(y))])
     for k in range(2):
         v_j = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(np.float32), params)
-        out_j = from_jax_params(jax.tree.map(np.asarray, A_j @ v_j), model)
+        out_j = from_jax_params(jax_apply(A_j, v_j), model)
         v = from_jax_params(v_j, model)
         out = A @ {n: v[n] for n in A.in_spec}  # the operator's key order
         err = rel_fro(torch.cat([out[n].reshape(-1) for n in out]),

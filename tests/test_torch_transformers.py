@@ -35,7 +35,13 @@ from curvlinops_tpu_torch.models import vit as tvit
 from curvlinops_tpu_torch.models.common import from_jax_params, to_jax_params
 from curvlinops_tpu_torch.models.resnet import kfac_restricted
 from tests.test_torch_gpt import GEOMETRY, LOGIT_ATOL, LOGIT_RTOL, MATVEC_TOL
-from tests.test_torch_helpers import assert_close, capped_torch_threads, rel_fro
+from tests.test_torch_helpers import (
+    assert_close,
+    capped_torch_threads,
+    jax_apply,
+    jax_gpt_init,
+    rel_fro,
+)
 
 _threads = capped_torch_threads()
 
@@ -53,7 +59,7 @@ def _noisy(params, seed=0):
 @pytest.fixture(scope="module")
 def gpt_case():
     config = jgpt.GPTConfig(**GEOMETRY)
-    params = _noisy(jgpt.init_gpt(jax.random.key(0), config))
+    params = _noisy(jax_gpt_init(config))
     stacked = jax.tree.map(np.asarray, jgpt.stack_gpt_blocks(params, config))
     rng = np.random.default_rng(3)
     X = rng.integers(0, GEOMETRY["vocab_size"], size=(BATCH, GEOMETRY["block_size"]))
@@ -174,7 +180,7 @@ def test_vit_kfac_matches_jax(vit_case, scan_blocks):
     v_jax = {k: rng.standard_normal(np.shape(a)).astype(np.float32) for k, a in jp.items()}
     v = from_jax_params(v_jax, model)
     out = op @ {n: v[n] for n in p}
-    expected = from_jax_params(jax.tree.map(np.asarray, jop @ v_jax), model)
+    expected = from_jax_params(jax_apply(jop, v_jax), model)
     for name in expected:
         assert rel_fro(out[name].detach().numpy(), expected[name].numpy()) < MATVEC_TOL, name
 
@@ -189,7 +195,7 @@ def test_fused_gpt_curvature_matches_jax(op_name):
     the port's einsum GPT."""
     config = jgpt.TINY_GPT
     params = jax.tree.map(
-        np.asarray, jgpt.stack_gpt_blocks(_noisy(jgpt.init_gpt(jax.random.key(0), config)), config)
+        np.asarray, jgpt.stack_gpt_blocks(_noisy(jax_gpt_init(config)), config)
     )
     rng = np.random.default_rng(2)
     tokens = rng.integers(0, config.vocab_size, size=(BATCH, config.block_size + 1))
@@ -209,7 +215,7 @@ def test_fused_gpt_curvature_matches_jax(op_name):
         out = A @ {n: v[n] for n in A.in_spec}
         flat = torch.cat([out[n].reshape(-1) for n in out])
         if out_j is None:
-            expected = from_jax_params(jax.tree.map(np.asarray, A_j @ v_j), model)
+            expected = from_jax_params(jax_apply(A_j, v_j), model)
             out_j = torch.cat([expected[n].reshape(-1) for n in out])
             fused = flat
             assert rel_fro(flat, out_j) < MATVEC_TOL, f"{op_name} vs JAX"
