@@ -354,14 +354,18 @@ def main() -> None:
     marks.append(time.perf_counter())
     collector_launches = collector_phases(torch, dev, smi)
     marks.append(time.perf_counter())
+    cond_launches = cond_phases(torch, dev, smi)
+    marks.append(time.perf_counter())
     for entry in entries:
         entry["launches"] += phase_launches[entry["name"]]
         entry["launches"] += stacked_launches.get(entry["name"], 0)
         entry["launches"] += collector_launches.get(entry["name"], 0)
+        entry["launches"] += cond_launches.get(entry["name"], 0)
     print("phase seconds: ResNet-18 kernel and KFAC {:.1f}, GPT kernels and KFAC {:.1f}, "
           "curvature operators {:.1f}, solvers {:.1f}, KFAC family {:.1f}, estimators, "
           "GGN diagonal and held linearizations {:.1f}, transformer family {:.1f}, "
-          "collector (bias-only, Conv1D layout) {:.1f}".format(
+          "collector (bias-only, Conv1D layout) {:.1f}, cond-gated GPT and fuzz twins "
+          "{:.1f}".format(
               *(b - a for a, b in zip(marks, marks[1:]))))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
@@ -388,7 +392,7 @@ def resnet_phases(torch, dev, kernels) -> dict:
     torch.cuda.synchronize()
     print(f"problem: ResNet-18/CIFAR-10, batch {BATCH}, {time.perf_counter() - t0:.2f} s")
     traced = TracedModel(problem.model, problem.kfac_params, X)
-    _, inputs, _ = traced.apply_with_io(problem.kfac_params, X)
+    _, inputs, _, _ = traced.apply_with_io(problem.kfac_params, X)
     eligible = [
         (u, inputs[u.layer_id].detach())
         for u in traced.layers
@@ -1514,7 +1518,7 @@ def kfac_family_phases(torch, dev, smi: str) -> None:
     launches = conv.launches
     # the plain materialized REDUCE: the location mean of the patch tensor
     traced = TracedModel(problem.model, problem.kfac_params, X)
-    _, inputs, _ = traced.apply_with_io(problem.kfac_params, X)
+    _, inputs, _, _ = traced.apply_with_io(problem.kfac_params, X)
     worst = 0.0
     for gi, group in enumerate(red.groups):
         if group.weight_path is None:
@@ -2626,6 +2630,217 @@ def collector_phases(torch, dev, smi: str) -> dict:
     del lin, conv, hf, p, out, out_hf
     torch.cuda.empty_cache()
     return {f"flash_attention_{n}": c for n, c in total.items()}
+
+# ---------------------------------------------------------------------- #
+# torch.cond-gated layers, and the collector fuzz twins on the card
+# ---------------------------------------------------------------------- #
+COND_TOL = 1e-5  # taken factors against the plain GPT's, float32 (the collector phase's)
+COND_CARD_CPU_TOL = 1e-12  # float64, the 2-layer cond GPT on the card against the CPU
+COND_MODES = ("taken", "untaken", "two")
+
+
+def gate_last_mlp(torch, model, mode: str) -> list[str]:
+    """The last block of the unrolled GPT ``model`` with its MLP called as
+    ``torch.cond(pred, mlp, other, (ln2(x),))``, ``pred`` the block input's
+    mean against a threshold that always (``"taken"``, ``"two"``) or never
+    (``"untaken"``) holds; ``other`` gives zeros, or for ``"two"`` a second
+    MLP of distinct weights (``mlp_fc_b``, ``mlp_proj_b``, seeded). In place;
+    returns the names of the second MLP's parameters."""
+    from curvlinops_tpu_torch.models.gpt import attention
+
+    F = torch.nn.functional
+    block = getattr(model, f"h{model.config.n_layer - 1}")
+    threshold = -1e30 if mode in ("taken", "two") else 1e30
+    extra = []
+    if mode == "two":
+        ref = block.mlp_fc.weight
+        gen = torch.Generator(ref.device).manual_seed(11)
+        for name in ("mlp_fc", "mlp_proj"):
+            old = getattr(block, name)
+            new = torch.nn.Linear(old.in_features, old.out_features, device=ref.device,
+                                  dtype=ref.dtype)
+            with torch.no_grad():
+                new.weight.normal_(0.0, 0.02, generator=gen)
+                new.bias.normal_(0.0, 0.02, generator=gen)
+            setattr(block, f"{name}_b", new)
+            extra += [f"h{model.config.n_layer - 1}.{name}_b.{leaf}" for leaf in ("weight", "bias")]
+
+    def mlp(fc, proj):
+        return lambda h: proj(F.gelu(fc(h), approximate="tanh"))
+
+    def forward(x):
+        pred = x.mean() > threshold  # a statistic of the block input
+        qkv = block.attn_qkv(block.ln1(x))
+        x = x + block.attn_proj(attention(qkv, block.n_head, block.attention_impl, block.causal))
+        other = (mlp(block.mlp_fc_b, block.mlp_proj_b) if mode == "two"
+                 else (lambda h: torch.zeros_like(h)))
+        return x + torch.cond(pred, mlp(block.mlp_fc, block.mlp_proj), other, (block.ln2(x),))
+
+    block.forward = forward
+    return extra
+
+
+def cond_report(item: str, **fields) -> None:
+    """One JSON line of the cond phase."""
+    print(json.dumps({"cond_phase": item, **fields}))
+
+
+def cond_gpt(torch, config, mode: str, device, batch: int, dtype=None, attention_impl="flash"):
+    """The GPT-2 problem of seed 0 with its last MLP cond-gated
+    (:func:`gate_last_mlp`); its ``kfac_params`` take the second MLP's too."""
+    from curvlinops_tpu_torch.models import gpt as tgpt
+
+    p = tgpt.shakespeare_nanogpt(batch, config, seed=0, dtype=dtype or torch.float32,
+                                 device=device, attention_impl=attention_impl)
+    extra = gate_last_mlp(torch, p.model, mode)
+    named = dict(p.model.named_parameters())
+    p.kfac_params.update({n: named[n] for n in extra})
+    return p
+
+
+def cond_phases(torch, dev, smi: str) -> dict:
+    """KFAC (MC, one sample, no probe) on the flash GPT-2 small whose last
+    MLP is ``torch.cond``-gated, three builds against the plain GPT on the
+    same batch and seed: taken (every factor within ``COND_TOL``), untaken
+    (the gated MLP's factors and matvec rows exactly 0.0, the rest finite),
+    two branches of distinct MLPs (the taken one's factors equal the taken
+    build's, the other's exactly 0.0); each build's flash launches counted
+    from 0 (attention lies outside the branch: 24 / 12 / 12); card vs CPU
+    in float64 on a 2-layer twin; the first chunk of each collector fuzz
+    family on the card in float64. Returns the launches by kernel."""
+    from curvlinops_tpu_torch import CrossEntropyLoss, KFACLinearOperator
+    from curvlinops_tpu_torch.models import flash_attention as fa
+    from curvlinops_tpu_torch.models import gpt as tgpt
+
+    config = GPT_CONFIG or tgpt.GPTConfig()
+    L = config.n_layer
+    total = {n: 0 for n in fa.launches}
+    expected = {"fwd": 2 * L, "bwd_dkv": L, "bwd_dq": L}
+
+    def build(p):
+        for n in fa.launches:
+            fa.launches[n] = 0
+        kfac, ms = timed(torch, lambda: KFACLinearOperator(
+            p.model, CrossEntropyLoss("mean"), p.kfac_params, p.data, fisher_type="mc",
+            check_deterministic=False))
+        launches = dict(fa.launches)
+        for n, c in launches.items():
+            total[n] += c
+        if launches != expected:
+            raise RuntimeError(f"flash launches {launches}, expected {expected}")
+        return kfac, ms, launches
+
+    def factors(kfac) -> dict:
+        out = {}
+        for gi, g in enumerate(kfac.groups):
+            out[g.key] = [m[gi] for m in (kfac._aaT, kfac._ggT) if gi in m]
+        return out
+
+    gated = f"h{L - 1}.mlp_"
+    plain = tgpt.shakespeare_nanogpt(GPT_BATCH, config, seed=0, device=dev, attention_impl="flash")
+    base, base_ms, _ = build(plain)
+    base_f = factors(base)
+    del base
+    results, builds = {}, {}
+    for mode in COND_MODES:
+        p = cond_gpt(torch, config, mode, dev, GPT_BATCH)
+        kfac, ms, launches = build(p)
+        mine = factors(kfac)
+        in_branch = {u.layer_id for g in kfac.groups for u in g.uses if u.cond_op is not None}
+        row = dict(build_ms=ms, flash_launches=launches, groups=len(kfac.groups),
+                   uses_in_branches=len(in_branch))
+        if mode == "taken":
+            row["worst_factor_rel_err_vs_plain"] = max(
+                rel_err(a, b) for k, fs in mine.items() for a, b in zip(fs, base_f[k]))
+            ok = row["worst_factor_rel_err_vs_plain"] < COND_TOL and len(mine) == len(base_f)
+            builds["taken"] = mine
+        else:
+            zero_keys = [k for k in mine if any(
+                (path or "").startswith(gated) and ("_b." in path) == (mode == "two")
+                for path in k)]
+            row["gated_groups"] = len(zero_keys)
+            row["gated_max_abs"] = max(float(f.abs().max()) for k in zero_keys for f in mine[k])
+            others = [f for k, fs in mine.items() if k not in zero_keys for f in fs]
+            row["others_finite"] = all(bool(f.isfinite().all()) for f in others)
+            gen = torch.Generator(dev).manual_seed(5)
+            v = {n: torch.randn(t.shape, generator=gen, device=dev)
+                 for n, t in p.kfac_params.items()}
+            out = kfac @ v
+            row["gated_matvec_max_abs"] = max(
+                float(out[n].abs().max()) for k in zero_keys for n in k if n is not None)
+            ok = (len(zero_keys) == 4 and row["gated_max_abs"] == 0.0
+                  and row["gated_matvec_max_abs"] == 0.0 and row["others_finite"])
+            if mode == "two":
+                taken = builds["taken"]
+                row["taken_branch_rel_err_vs_taken_build"] = max(
+                    rel_err(a, b) for k, fs in mine.items() if k in taken
+                    for a, b in zip(fs, taken[k]))
+                ok = ok and row["taken_branch_rel_err_vs_taken_build"] < COND_TOL
+            del out, v
+        results[mode] = row
+        cond_report(f"cond-gated last MLP, {mode}, flash GPT-2 small", batch=GPT_BATCH,
+                    T=config.block_size, layers=L, plain_build_ms=base_ms, tol=COND_TOL,
+                    card=smi, **row)
+        if not ok:
+            raise RuntimeError(f"cond phase, {mode}: {row}")
+        del kfac, p
+        torch.cuda.empty_cache()
+    del plain, base_f, builds
+    torch.cuda.empty_cache()
+
+    card_cpu = cond_card_against_cpu(torch, dev)
+    cond_report("card vs CPU, float64, 2-layer cond GPT (einsum), KFAC type-2 @ V",
+                worst_rel_err=card_cpu, tol=COND_CARD_CPU_TOL, modes=list(COND_MODES))
+    fuzz = fuzz_on_card(torch, dev)
+    cond_report("collector fuzz twins, first chunk of each family, card, float64",
+                card=smi, **fuzz)
+    return {f"flash_attention_{n}": c for n, c in total.items()}
+
+
+def cond_card_against_cpu(torch, dev) -> float:
+    """Type-2 KFAC of the 2-layer cond GPT (einsum attention, float64) in
+    each mode on the card and the CPU: ``A @ V`` to ``COND_CARD_CPU_TOL``."""
+    from curvlinops_tpu_torch import KFACLinearOperator
+    from curvlinops_tpu_torch.models.gpt import TINY_GPT
+
+    worst = 0.0
+    for mode in COND_MODES:
+        a, b = (cond_gpt(torch, TINY_GPT, mode, device, 2, torch.float64, "einsum")
+                for device in ("cpu", dev))
+        ka, kb = (KFACLinearOperator(p.model, p.loss_fn, p.kfac_params, p.data,
+                                     fisher_type="type-2", check_deterministic=False)
+                  for p in (a, b))
+        n = sum(t.numel() for t in a.kfac_params.values())
+        V = torch.randn((n, 2), generator=torch.Generator().manual_seed(7), dtype=torch.float64)
+        err = rel_err((kb @ V.to(dev)).cpu(), ka @ V)
+        worst = max(worst, err)
+        if not err <= COND_CARD_CPU_TOL:
+            raise RuntimeError(f"cond GPT {mode}: card vs CPU {err} (tol {COND_CARD_CPU_TOL})")
+    return worst
+
+
+def fuzz_on_card(torch, dev) -> dict:
+    """The first chunk of each collector fuzz family
+    (``tests/torch_fuzz_cases.py``, no JAX) on the card in float64: every
+    case exact against the dense GGN or refused, each chunk above JAX's
+    non-vacuity floor; the scan family's stacks equal their unrolled twins."""
+    from tests import torch_fuzz_cases as fc
+
+    out = {}
+    t0 = time.perf_counter()
+    for family, build, n, atol in (("exact_or_refuse", fc.build_case, 20, 1e-5),
+                                   ("linear_sharing", fc.build_linear_sharing_case, 20, 1e-5),
+                                   ("conv_sharing", fc.build_conv_sharing_case, 15, 2e-5)):
+        built, refused = fc.run_chunk(build, range(n), atol, dev, torch.float64)
+        out[family] = {"built": built, "refused": refused}
+        if built < n // 3:
+            raise RuntimeError(f"fuzz {family} on the card: {built} built, {refused} refused")
+    for seed in range(10):
+        fc.scan_equals_unrolled(seed, dev, torch.float64)
+    out["scan_equals_unrolled"] = 10
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
 
 if __name__ == "__main__":
     main()

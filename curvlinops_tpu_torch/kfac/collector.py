@@ -7,11 +7,11 @@ modules and under a ``TorchFunctionMode`` that sees every torch call. A
 covered parameter (one KFAC is asked to cover) may be used as:
 
 1. the ``weight`` or ``bias`` of a module of a recognised type
-   (``nn.Linear``, ``nn.Conv2d``, the ResNet's
+   (``nn.Linear``, ``nn.Conv1d``, ``nn.Conv2d``, the ResNet's
    :class:`~curvlinops_tpu_torch.models.resnet.SamePadConv2d`, whose forward
    is known, :class:`~curvlinops_tpu_torch.models.stack.StackedLinear` or
    ``nn.Embedding``), inside that module's forward, in a configuration the
-   math supports (no dilation, no groups, zero padding mode; a plain lookup
+   math supports (zero padding mode, any dilation and groups; a plain lookup
    table). A covered bias whose module weight is not covered is a bias-only
    block (the JAX collector's ``exclude='weight'`` blocks, which need only
    the output gradients);
@@ -25,6 +25,13 @@ covered parameter (one KFAC is asked to cover) may be used as:
    ``Conv1D`` (``addmm(b, x.view(-1, in), W)`` with ``W [in, out]``) are
    dense layers in the canonical ``[d_out, d_in]`` space. ``F.linear``'s
    ``bias`` and ``addmm``'s ``input`` pair as that use's bias;
+   likewise the weight of ``F.conv1d``/``F.conv2d``, directly or through
+   such a view (JAX's HWIO/OIHW kernels become a ``permute`` before the
+   call), with any stride, dilation, groups and the padding ``"same"``,
+   ``"valid"`` or integers (a crop, JAX's negative padding, is an ``F.pad``
+   of the input before the call); its ``bias`` pairs as the use's bias.
+   Grouped convs average their input over the channel groups, as the JAX
+   package and the reference do;
 3. a bias added onto a tensor by ``+``/``torch.add``, the ``bias`` of
    ``F.linear`` or the ``input`` of ``addmm``: onto a layer's output it
    pairs as that layer's bias; onto any other tensor whose trailing axis is
@@ -40,7 +47,25 @@ broadcast off the feature axis, a bias-only block inside a scan, a bias
 tied across different layers, and a covered weight no layer call consumes.
 The same forward watches every :func:`~curvlinops_tpu_torch.models.stack.scan`
 call and refuses a covered parameter in the loop carry, one that flows out
-of the loop, and a scan inside a scan (the JAX collector's refusals).
+of the loop, and a scan inside a scan (the JAX collector's refusals). A
+``torch._higher_order_ops.while_loop`` around a covered parameter is
+refused, as the JAX collector refuses ``while``.
+
+``torch.cond`` around layers is LOWERED TO SELECT, as the JAX collector
+lowers ``lax.cond``: the forwards run under
+:func:`~curvlinops_tpu_torch.utils.cond.cond_handler`, which runs both
+branches eagerly under the same hooks and mode, tags every use recorded in
+a branch with ``(cond_op, cond_branch)`` and returns the taken branch's
+output through ``torch.where`` (no dynamo compile is paid). The tapped
+forward gives each use a gate: 1 outside conds, and in a branch the
+detached taken indicator, by which the factor pass scales the use's input
+covariance; the untaken branch's output gradients vanish through the
+select, so a layer that did not run contributes an exactly zero block.
+Refused with a message naming ``cond``: a weight tied across branches or
+between a branch and the outside, a bias-only block or an embedding lookup
+in a branch, a covered parameter flowing out of the cond, a predicate
+computed from a covered parameter, a cond inside a scan or another cond
+around covered parameters, and a scan inside a branch around them.
 
 A function-level use whose leading axis is not the batch (HuggingFace's
 ``x.view(-1, in)`` gives ``B * T`` rows) is regrouped as ``[B, rows // B,
@@ -82,9 +107,10 @@ from torch.utils import _pytree as pytree
 
 from curvlinops_tpu_torch.models.resnet import SamePadConv2d
 from curvlinops_tpu_torch.models.stack import StackedLinear, watch_scans
+from curvlinops_tpu_torch.utils.cond import cond_handler, predicate, select
 
 # module types whose forward is known to be exactly conv2d / linear / a lookup
-_CONV_TYPES = (nn.Conv2d, SamePadConv2d)
+_CONV_TYPES = (nn.Conv1d, nn.Conv2d, SamePadConv2d)
 _LINEAR_TYPES = (nn.Linear, StackedLinear)
 _EMBEDDING_TYPES = (nn.Embedding,)
 # tensor metadata reads that do not use a parameter's values
@@ -94,6 +120,8 @@ _METADATA_METHODS = {torch.Tensor.size, torch.Tensor.dim, torch.Tensor.numel}
 _MATMULS = {torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__, torch.mm, torch.Tensor.mm}
 _ADDMMS = {torch.addmm, torch.Tensor.addmm}
 _ADDS = {torch.add, torch.Tensor.add, torch.Tensor.__add__, torch.Tensor.__radd__}
+# conv calls whose weight may be a covered weight, by their number of spatial axes
+_CONVS = {F.conv1d: 1, F.conv2d: 2}
 
 
 @dataclass
@@ -106,6 +134,8 @@ class LayerUse:
     weight_path: str | None  # name of the covered weight; None for bias-only
     meta: dict = field(default_factory=dict)
     bias_path: str | None = None  # name of the covered bias, if any
+    cond_op: int | None = None  # number of the enclosing torch.cond call
+    cond_branch: int | None = None  # its branch: 1 true, 0 false (JAX's index)
 
 
 def _recognised(mod: nn.Module) -> str | None:
@@ -118,16 +148,36 @@ def _recognised(mod: nn.Module) -> str | None:
     return None
 
 
-def _conv_padding(mod: nn.Conv2d, h: int, w: int) -> tuple:
-    """``((lo_h, hi_h), (lo_w, hi_w))`` zero padding of a conv module's call."""
-    if isinstance(mod, SamePadConv2d):
-        return mod.same_pads(h, w)
-    if mod.padding == "valid":
-        return ((0, 0), (0, 0))
-    if mod.padding == "same":  # PyTorch puts the odd pixel at the end
-        totals = [d * (k - 1) for d, k in zip(mod.dilation, mod.kernel_size)]
+def _conv_padding(padding, kernel: tuple, dilation: tuple) -> tuple:
+    """``((lo, hi), ...)`` zero padding, one pair per spatial axis, of a
+    conv call's ``padding`` (``"valid"``, ``"same"``, an int or a tuple)."""
+    if padding == "valid":
+        return ((0, 0),) * len(kernel)
+    if padding == "same":  # PyTorch puts the odd pixel at the end
+        totals = [d * (k - 1) for d, k in zip(dilation, kernel)]
         return tuple((t // 2, t - t // 2) for t in totals)
-    return tuple((p, p) for p in mod.padding)
+    if isinstance(padding, int):
+        padding = (padding,) * len(kernel)
+    return tuple((p, p) for p in padding)
+
+
+def _conv_meta(kernel, stride, padding, dilation, groups: int, C: int, w_shape: tuple) -> dict:
+    """A conv use's metadata; ``kernel`` fixes the number of spatial axes."""
+    nd = len(kernel)
+
+    def as_tuple(v) -> tuple:
+        return (v,) * nd if isinstance(v, int) else tuple(v)
+
+    kernel, dilation = tuple(kernel), as_tuple(dilation)
+    return {
+        "stride": as_tuple(stride),
+        "padding": _conv_padding(padding, kernel, dilation),
+        "kernel": kernel,
+        "dilation": dilation,
+        "groups": groups,
+        "C": C,
+        "w_shape": tuple(w_shape),
+    }
 
 
 def _config_problem(mod: nn.Module) -> str | None:
@@ -142,10 +192,6 @@ def _config_problem(mod: nn.Module) -> str | None:
         return None
     if _recognised(mod) != "conv":
         return None
-    if tuple(mod.dilation) != (1, 1):
-        return f"dilation {tuple(mod.dilation)}"
-    if mod.groups != 1:
-        return f"groups={mod.groups}"
     if mod.padding_mode != "zeros":
         return f"padding_mode={mod.padding_mode!r}"
     return None
@@ -164,16 +210,11 @@ def _use_meta(mod: nn.Module, args: tuple) -> dict:
         return {"d_in": mod.in_features, "d_out": mod.out_features}
     if _recognised(mod) == "embedding":
         return {"vocab": mod.num_embeddings, "d_in": mod.num_embeddings, "d_out": mod.embedding_dim}
-    kh, kw = mod.kernel_size
-    return {
-        "stride": tuple(mod.stride),
-        "padding": _conv_padding(mod, x.shape[-2], x.shape[-1]),
-        "kernel": (kh, kw),
-        "dilation": tuple(mod.dilation),
-        "groups": mod.groups,
-        "C": mod.in_channels,
-        "w_shape": tuple(mod.weight.shape),
-    }
+    meta = _conv_meta(mod.kernel_size, mod.stride, mod.padding, mod.dilation, mod.groups,
+                      mod.in_channels, mod.weight.shape)
+    if isinstance(mod, SamePadConv2d):
+        meta["padding"] = mod.same_pads(x.shape[-2], x.shape[-1])
+    return meta
 
 
 def _view_steps(v: torch.Tensor, root: torch.Tensor) -> tuple | None:
@@ -243,6 +284,23 @@ def _dense_call(func, args: tuple, kwargs: dict):
     return None
 
 
+def _conv_call(func, args: tuple, kwargs: dict):
+    """``(x, w, bias, meta)`` of an ``F.conv1d``/``F.conv2d`` call, or ``None``."""
+    nd = _CONVS.get(func)
+    if nd is None:
+        return None
+    names = ("input", "weight", "bias", "stride", "padding", "dilation", "groups")
+    bound = dict(zip(names, (None, None, None, 1, 0, 1, 1)))
+    bound.update(zip(names, args))
+    bound.update(kwargs)
+    x, w = bound["input"], bound["weight"]
+    if not (isinstance(x, torch.Tensor) and isinstance(w, torch.Tensor) and w.ndim == nd + 2):
+        return None
+    meta = _conv_meta(tuple(w.shape[2:]), bound["stride"], bound["padding"], bound["dilation"],
+                      bound["groups"], x.shape[1] if x.ndim == nd + 2 else 0, w.shape)
+    return x, w, bound["bias"], meta
+
+
 def _add_operands(func, args: tuple, kwargs: dict):
     """The two tensor operands of a plain ``a + b``, or ``None``."""
     if func not in _ADDS or len(args) != 2 or kwargs.get("alpha", 1) != 1:
@@ -279,6 +337,8 @@ class _Calls(TorchFunctionMode):
         self.descended: dict[int, torch.Tensor] = {}
         self.batch_rows: set[int] = set()  # layer outputs whose merged rows are batch-major
         self.violations: dict[str, set] = {}
+        # values computed from covered parameters outside any layer call
+        self.param_values: dict[int, torch.Tensor] = {}
 
     # ------------------------------------------------------------------ #
     @staticmethod
@@ -303,11 +363,22 @@ class _Calls(TorchFunctionMode):
         hit = self.outputs.get(id(t))
         return hit is not None and self.traced.layers[hit[0]].weight_path is not None
 
+    @staticmethod
+    def _mark(table: dict, out) -> None:
+        for o in pytree.tree_leaves(out):
+            if isinstance(o, torch.Tensor):
+                table[id(o)] = o
+
     def _propagate(self, leaves: list, out) -> None:
         if any(id(t) in self.descended or self._weight_output(t) for t in leaves):
-            for o in pytree.tree_leaves(out):
-                if isinstance(o, torch.Tensor):
-                    self.descended[id(o)] = o
+            self._mark(self.descended, out)
+        if leaves and all(id(t) in self.param_values or id(t) in self.tracked for t in leaves):
+            self._mark(self.param_values, out)  # computed from parameters alone
+
+    def is_parameter(self, t) -> bool:
+        """Whether ``t`` is a covered parameter, a view of one, or computed
+        from one outside any layer call."""
+        return self._name(t) is not None or id(t) in self.param_values
 
     def _refuse(self, name: str, why: str) -> None:
         self.traced.problems.append(f"  {name}: {why}")
@@ -333,12 +404,18 @@ class _Calls(TorchFunctionMode):
         is_view = self._track_view(hits, out)
         if self.mode == "tap":
             return self.on_tap(seq, func, args, kwargs, out) if seq in self.taps else out
+        names = {self._name(t) for t in hits}
+        if self.traced.in_while:
+            for name in names:
+                self._refuse(name, "while_loop (a loop around a covered parameter is not "
+                             "supported)")
         owner = self.active[-1] if self.active else None
         own = owner is not None and all(
             owner.weight is t or getattr(owner, "bias", None) is t for t in hits
         )  # the module's own call: its hook records it
         if not (is_view or own or self._classify(seq, func, args, kwargs, hits, out)):
-            self._flag({self._name(t) for t in hits}, func)
+            self._flag(names, func)
+            self._mark(self.param_values, out)
         self._propagate(leaves, out)
         return out
 
@@ -359,6 +436,9 @@ class _Calls(TorchFunctionMode):
         dense = _dense_call(func, args, kwargs)
         if dense is not None:
             return self._dense(seq, func, dense, out)
+        conv = _conv_call(func, args, kwargs)
+        if conv is not None:
+            return self._conv(seq, func, conv, out)
         pair = _add_operands(func, args, kwargs)
         if pair is not None and len(hits) == 1 and any(t is hits[0] for t in pair):
             z = pair[1] if pair[0] is hits[0] else pair[0]
@@ -427,11 +507,36 @@ class _Calls(TorchFunctionMode):
         self.mark_output(out, use.layer_id)
         return True
 
+    def _conv(self, seq, func, conv, out) -> bool:
+        x, w, b, meta = conv
+        wname, bname = self._name(w), self._name(b)
+        fname = getattr(func, "__name__", str(func))
+        if wname is None or self._name(x) is not None or self._stacked(wname):
+            return False
+        if x.ndim != w.ndim or x.shape[0] != self.traced.batch_size:
+            self._refuse(wname, f"{fname} (the conv input's leading axis is not the batch)")
+            return True
+        if bname is not None and not (b.ndim == 1 and b.stride(0) == 1
+                                      and b.numel() == w.shape[0]):
+            self._refuse(bname, f"{fname} (bias is not the conv's {w.shape[0]} output "
+                         "channels in identity order)")
+            return True
+        meta.update({
+            "w_views": _view_steps(w, self.roots[wname]),
+            "w_leaf_shape": tuple(self.roots[wname].shape),
+            "w_operand_shape": tuple(w.shape),
+        })
+        use = self.traced.add_use(f"{wname}:{fname}", "conv", wname, meta, bname)
+        self.taps[seq] = use.layer_id
+        self.mark_output(out, use.layer_id)
+        return True
+
     def _bias_only(self, seq, bname, b, z, out, fname) -> bool:
         """A covered bias added onto ``z``, which no covered layer produced."""
-        if self.traced.scans.lengths:
-            self._refuse(bname, f"{fname} (a bias-only block inside a scan is not "
-                         "supported; cover the layer's weight or move the bias out)")
+        if self.traced.scans.lengths or self.traced.conds:
+            self._refuse(bname, f"{fname} (a bias-only block inside a scan or a cond "
+                         "branch is not supported; cover the layer's weight or move the "
+                         "bias out)")
             return True
         if out.ndim < 2 or b.numel() != out.shape[-1]:
             trailing = out.shape[-1] if out.ndim else 0
@@ -497,12 +602,14 @@ class _Calls(TorchFunctionMode):
 class _ScanWatch:
     """Watches the :func:`~curvlinops_tpu_torch.models.stack.scan` calls of
     one forward for covered parameters in the carry or flowing out of the
-    loop, and for nested scans; :attr:`lengths` is the stack of open loops."""
+    loop, for nested scans and, given the traced model, for a scan inside a
+    cond branch around layers; :attr:`lengths` is the stack of open loops."""
 
-    def __init__(self, covered: dict[int, str]):
-        self.covered = covered
+    def __init__(self, covered: dict[int, str], traced: "TracedModel | None" = None):
+        self.covered, self.traced = covered, traced
         self.lengths: list[int] = []
         self.problems: list[str] = []
+        self._opened: list[int] = []  # layer counts when each loop opened
 
     def _params_in(self, tree) -> list[str]:
         names = []
@@ -519,11 +626,16 @@ class _ScanWatch:
         for name in self._params_in(carry):
             self.problems.append(f"  {name}: scan (parameter enters the loop carry)")
         self.lengths.append(length)
+        self._opened.append(len(self.traced.layers) if self.traced is not None else 0)
 
     def exit(self, carry) -> None:  # noqa: D102
         self.lengths.pop()
+        opened = self._opened.pop()
         for name in self._params_in(carry):
             self.problems.append(f"  {name}: scan (parameter flows out of the scan)")
+        if self.traced is not None and self.traced.conds and len(self.traced.layers) > opened:
+            self.problems.append("  scan (a scan inside a cond branch around layers is not "
+                                 "supported)")
 
 
 class TracedModel:
@@ -557,6 +669,10 @@ class TracedModel:
             self._module_names.setdefault(id(mod), name)
 
         self.problems: list[str] = []  # why the parameters are refused
+        self.conds: list[tuple] = []  # open cond branches: (cond_op, branch, gate)
+        self.in_while = 0  # open while_loop calls
+        self._cond_count = 0
+        self._calls: _Calls | None = None  # the verification forward's mode
         self._owners = {}  # covered parameter -> (recognised module, attribute)
         for name in self.param_names:
             mod_name, _, attr = name.rpartition(".")
@@ -578,8 +694,8 @@ class TracedModel:
         self.layers: list[LayerUse] = []
         active: list = []
         covered = {id(t): n for n, t in params.items()}
-        self.scans = _ScanWatch(covered)
-        calls = _Calls(self, dict(params), active, "trace")
+        self.scans = _ScanWatch(covered, self)
+        calls = self._calls = _Calls(self, dict(params), active, "trace")
 
         def on_call(mod, args, out):
             weight = covered.get(id(mod.weight))
@@ -588,9 +704,9 @@ class TracedModel:
                 return
             kind, mod_name = _recognised(mod), self._module_names[id(mod)]
             if weight is None:  # bias-only: the module's weight is closed over
-                if isinstance(mod, StackedLinear) or self.scans.lengths:
-                    self.problems.append(f"  {bias}: a bias-only block inside a scan or of a "
-                                         "scan-stacked layer is not supported")
+                if isinstance(mod, StackedLinear) or self.scans.lengths or self.conds:
+                    self.problems.append(f"  {bias}: a bias-only block inside a scan or a cond "
+                                         "branch, or of a scan-stacked layer, is not supported")
                     return
                 d_out = mod.out_channels if kind == "conv" else mod.out_features
                 meta = {"d_in": 0, "d_out": d_out, "bias_only": True}
@@ -603,6 +719,10 @@ class TracedModel:
                     f"  {weight}: StackedLinear called with a layer index {args[1:]!r}"
                 )
                 return
+            if kind == "embedding" and self.conds:
+                # masking the lookup's token ids would miscount a token
+                self.problems.append(f"  {weight}: cond (embedding lookup inside a cond branch)")
+                return
             if self.scans.lengths:
                 meta["scan"] = self.scans.lengths[-1]  # called in a loop: shared over L
             calls.mark_output(out, self.add_use(mod_name, kind, weight, meta, bias).layer_id)
@@ -613,8 +733,10 @@ class TracedModel:
         self._taps = calls.taps
         violations = calls.violations
         del calls  # drops the references to the forward's values
+        self._calls = None
         self.problems.extend(self.scans.problems)
         self.problems.extend(self._tied_bias_problems())
+        self.problems.extend(self._cond_tie_problems())
 
         used = {u.weight_path for u in self.layers} | {u.bias_path for u in self.layers}
         for name in self.param_names:
@@ -629,8 +751,9 @@ class TracedModel:
             elif name not in used and owner is None:
                 extra = f" (used by {sorted(violations[name])})" if name in violations else ""
                 self.problems.append(
-                    f"  {name}: not the weight/bias of an nn.Linear, nn.Conv2d, "
-                    f"StackedLinear or nn.Embedding, nor of a dense call{extra}"
+                    f"  {name}: not the weight/bias of an nn.Linear, nn.Conv1d, "
+                    f"nn.Conv2d, StackedLinear or nn.Embedding, nor of a dense or "
+                    f"conv call{extra}"
                 )
             elif name not in used:
                 self.problems.append(f"  {name}: not consumed by any layer call")
@@ -640,10 +763,62 @@ class TracedModel:
     # ------------------------------------------------------------------ #
     def add_use(self, name: str, kind: str, weight: str | None, meta: dict,
                 bias: str | None) -> LayerUse:
-        """Append a layer use (verification forward only)."""
+        """Append a layer use (verification forward only), tagged with the
+        cond branch it runs in."""
         use = LayerUse(len(self.layers), name, kind, weight, meta, bias)
+        if self.conds:
+            use.cond_op, use.cond_branch = self.conds[-1][:2]
         self.layers.append(use)
         return use
+
+    def _cond_tie_problems(self) -> list[str]:
+        """A weight used in a cond branch and anywhere else (another branch,
+        or outside) would need factors normalised across contexts."""
+        contexts: dict[str, set] = {}
+        for u in self.layers:
+            if u.weight_path is not None:
+                contexts.setdefault(u.weight_path, set()).add((u.cond_op, u.cond_branch))
+        return [
+            f"  {w}: cond (weight tied across cond branches or between a branch and the "
+            "outside)"
+            for w, c in contexts.items() if len(c) > 1 and any(op is not None for op, _ in c)
+        ]
+
+    def _on_cond(self, pred, true_fn, false_fn, operands):
+        """A ``torch.cond`` call, lowered to select: both branches run under
+        the forward's hooks and mode, the taken one's output is returned."""
+        number, self._cond_count = self._cond_count, self._cond_count + 1
+        calls, taken = self._calls, predicate(pred)
+        if calls is not None and calls.is_parameter(pred):
+            self.problems.append("  cond (parameter-derived predicate)")
+        nested = bool(self.conds or self.scans.lengths)
+        opened = len(self.layers)
+        outs = {}
+        for branch, fn in ((1, true_fn), (0, false_fn)):  # JAX's index: 1 is true
+            gate = (taken if branch else ~taken).to(torch.float32).detach()
+            self.conds.append((number, branch, gate))
+            try:
+                outs[branch] = fn(*operands)
+            finally:
+                self.conds.pop()
+            if calls is not None:
+                for name in {calls._name(t) for t in pytree.tree_leaves(outs[branch])} - {None}:
+                    self.problems.append(f"  {name}: cond (parameter flows out of the cond)")
+        if nested and len(self.layers) > opened:
+            self.problems.append("  cond (nested inside a scan or a cond around layers)")
+        return select(taken, outs[1], outs[0])
+
+    def _on_while(self, cond_fn, body_fn, carried_inputs, additional_inputs=()):
+        """A ``while_loop``, run as a Python loop; any covered parameter read
+        inside is refused."""
+        self.in_while += 1
+        try:
+            carry = tuple(carried_inputs)
+            while bool(cond_fn(*carry, *additional_inputs)):
+                carry = tuple(body_fn(*carry, *additional_inputs))
+        finally:
+            self.in_while -= 1
+        return carry
 
     def _tied_bias_problems(self) -> list[str]:
         """A bias shared by layers of different weights (or by a layer and a
@@ -662,10 +837,11 @@ class TracedModel:
     def _refusal(problems: list[str]) -> str:
         return (
             "KFAC supports parameters that are only used as the weight/bias of "
-            "nn.Linear, nn.Conv2d, StackedLinear or nn.Embedding layers inside "
-            "their own forward, as the right operand of F.linear, matmul, mm or "
-            "addmm, or as a bias added onto a layer output or onto an "
-            "independent tensor. Offending parameters:\n" + "\n".join(problems)
+            "nn.Linear, nn.Conv1d, nn.Conv2d, StackedLinear or nn.Embedding layers "
+            "inside their own forward, as the right operand of F.linear, matmul, "
+            "mm or addmm, as the weight of F.conv1d or F.conv2d, or as a bias "
+            "added onto a layer output or onto an independent tensor (in a "
+            "torch.cond branch too). Offending parameters:\n" + "\n".join(problems)
             + "\nPass only supported parameters to KFAC and leave the rest in "
             "the module."
         )
@@ -689,13 +865,17 @@ class TracedModel:
             if _recognised(mod) is not None:
                 handles.append(mod.register_forward_pre_hook(pre))
                 handles.append(mod.register_forward_hook(post))
+        self._cond_count = 0
+        saved_while = torch._higher_order_ops.while_loop
+        torch._higher_order_ops.while_loop = self._on_while
         try:
-            with watch_scans(scans or _ScanWatch({})):
+            with watch_scans(scans or _ScanWatch({})), cond_handler(self._on_cond):
                 if mode is None:
                     return torch.func.functional_call(self.model, params, (X,))
                 with mode:
                     return torch.func.functional_call(self.model, params, (X,))
         finally:
+            torch._higher_order_ops.while_loop = saved_while
             for h in handles:
                 h.remove()
             active.clear()
@@ -709,16 +889,18 @@ class TracedModel:
 
     def apply_with_io(
         self, params: dict[str, torch.Tensor], X: Any
-    ) -> tuple[torch.Tensor, list, list[torch.Tensor]]:
+    ) -> tuple[torch.Tensor, list, list[torch.Tensor], list]:
         """Forward pass that taps every layer use.
 
         Returns:
-            ``(prediction, inputs, deltas)``: per layer use, its (detached)
-            input (token ids for a lookup; ``None`` for a bias-only block)
-            and the zero leaf added to its output. Gradients w.r.t. the
-            deltas are the layers' output gradients. A dense use whose
-            leading axis is not the batch has both regrouped as
-            ``[B, rows // B, ...]``.
+            ``(prediction, inputs, deltas, gates)``: per layer use, its
+            (detached) input (token ids for a lookup; ``None`` for a
+            bias-only block), the zero leaf added to its output, and its
+            gate: ``1.0`` outside conds, and in a cond branch the detached
+            float32 0-d taken indicator (JAX's ``layer_gates``). Gradients
+            w.r.t. the deltas are the layers' output gradients (exactly 0 in
+            an untaken branch). A dense use whose leading axis is not the
+            batch has its input and delta regrouped as ``[B, rows // B, ...]``.
 
         Raises:
             RuntimeError: If the layer uses differ from the traced ones.
@@ -726,7 +908,7 @@ class TracedModel:
         detached = {n: p.detach() for n, p in params.items()}
         covered = {id(t) for t in detached.values()}
         n = len(self.layers)
-        inputs, deltas = [None] * n, [None] * n
+        inputs, deltas, gates = [None] * n, [None] * n, [1.0] * n
         position = [0]
 
         def tap(use: LayerUse, x, out):
@@ -739,6 +921,8 @@ class TracedModel:
             shape = self._by_batch(out, use).shape
             delta = torch.zeros(shape, dtype=out.dtype, device=out.device, requires_grad=True)
             deltas[i] = delta
+            if self.conds:
+                gates[i] = self.conds[-1][2]
             return out + delta.reshape(out.shape)
 
         def on_call(mod, args, out):
@@ -753,12 +937,12 @@ class TracedModel:
         mode = None
         if self._taps:
             def on_fn_tap(seq, func, args, kwargs, out):
-                dense = _dense_call(func, args, kwargs)
-                return tap(self.layers[self._taps[seq]], None if dense is None else dense[0], out)
+                call = _dense_call(func, args, kwargs) or _conv_call(func, args, kwargs)
+                return tap(self.layers[self._taps[seq]], None if call is None else call[0], out)
 
             mode = _Calls(self, detached, [], "tap", self._taps, on_fn_tap)
         with torch.enable_grad():
             pred = self._forward(detached, X, on_call, [], mode)
         if position[0] != n:
             raise RuntimeError("The model's layer calls differ from the traced ones.")
-        return pred, inputs, deltas
+        return pred, inputs, deltas, gates

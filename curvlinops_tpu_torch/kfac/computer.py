@@ -7,7 +7,10 @@ eligible convs on CUDA under EXPAND), the grad outputs are drawn or computed
 in closed form, and ONE batched backward over all ``V`` grad-output vectors
 gives every layer's output gradients (gradient covariances ``ggT``).
 EKFAC's correction pass and KFOC reuse the tapped forward and the batched
-backward (:meth:`KFACComputer._layer_grads`).
+backward (:meth:`KFACComputer._layer_grads`). A use inside a ``torch.cond``
+branch has its input covariance scaled by its gate (the taken indicator),
+the kernel's output included; the untaken branch's output gradients are
+exactly zero, so its blocks are exactly zero.
 
 A scan-stacked weight (``StackedLinear``, ``models/stack.py``) forms one
 group with ``stack = L``: each slice is its own Kronecker block, computed
@@ -44,6 +47,7 @@ from curvlinops_tpu_torch.risk import (
     batch_generator,
     default_batch_size,
 )
+from curvlinops_tpu_torch.utils.misc import as_model_fn
 
 
 @dataclass
@@ -75,8 +79,8 @@ class ParamGroup:
 
 def _use_dims(u: LayerUse) -> tuple[int, int]:
     if u.kind == "conv":
-        O, C, kh, kw = u.meta["w_shape"]
-        return C * kh * kw, O
+        O, C, *kernel = u.meta["w_shape"]
+        return C * math.prod(kernel), O
     return u.meta["d_in"], u.meta["d_out"]
 
 
@@ -98,9 +102,12 @@ def _stacked_uses(key: str, uses: list[LayerUse]) -> tuple[list[LayerUse], int]:
 
 
 def _canonical_layout(u: LayerUse, shape: tuple) -> torch.Tensor:
-    """Where a dense use puts each element of its ``shape``-d weight in the
-    canonical ``[d_out, d_in]`` block."""
-    return kmath.canonical_dense_weight(torch.arange(math.prod(shape)).reshape(shape), u.meta)
+    """Where a dense or conv use puts each element of its ``shape``-d weight
+    in the canonical ``[d_out, d_in]`` block."""
+    W = torch.arange(math.prod(shape)).reshape(shape)
+    if u.kind == "conv":
+        return kmath.canonical_conv_weight(W, u.meta)
+    return kmath.canonical_dense_weight(W, u.meta)
 
 
 def build_groups(layers: list[LayerUse], separate_weight_and_bias: bool) -> list[ParamGroup]:
@@ -136,8 +143,8 @@ def build_groups(layers: list[LayerUse], separate_weight_and_bias: bool) -> list
             raise ValueError(
                 f"Weight {key} is tied across layers with different canonical shapes."
             )
-        if uses[0].kind == "dense" and not stack and len(uses) > 1:
-            shape = uses[0].meta.get("w_leaf_shape", (d_out, d_in))
+        if uses[0].kind in ("dense", "conv") and not stack and len(uses) > 1:
+            shape = uses[0].meta.get("w_leaf_shape", uses[0].meta.get("w_shape", (d_out, d_in)))
             layout = _canonical_layout(uses[0], shape)
             if any(not torch.equal(_canonical_layout(u, shape), layout) for u in uses[1:]):
                 raise ValueError(
@@ -390,7 +397,7 @@ class KFACComputer:
         return torch.func.vmap(vjp)(G_pred), corr_eff
 
     def _batch_factors(self, traced, X, y, generator, correction) -> tuple[dict, dict]:
-        pred, inputs, deltas = traced.apply_with_io(self.params, X)
+        pred, inputs, deltas, gates = traced.apply_with_io(self.params, X)
 
         def input_cov(group, uses):
             cov, S_total = None, 0
@@ -398,6 +405,12 @@ class KFACComputer:
                 cov_u, S_u = self._input_covariance(
                     inputs[u.layer_id], u, self._bias_pad(group, u)
                 )
+                # a cond-gated use: an untaken branch contributes an exactly
+                # zero block (the gate is 1 outside conds); every datum still
+                # counts in the normalisation
+                gate = gates[u.layer_id]
+                if isinstance(gate, torch.Tensor):
+                    cov_u = cov_u * gate.to(cov_u.dtype)
                 cov = cov_u if cov is None else cov + cov_u
                 S_total += S_u
             return cov / (self.num_data * S_total)
@@ -471,12 +484,18 @@ class KFACComputer:
             RuntimeError: If the two passes disagree.
         """
 
+        model_fn = as_model_fn(self.model)  # torch.cond inlined
+
         def one_pass():
             params = {n: p.detach().requires_grad_(True) for n, p in self.params.items()}
             total_loss, total_grad = None, None
             for X, y in self.data:
-                loss = self.loss_fn(torch.func.functional_call(self.model, params, (X,)), y)
-                grad = torch.autograd.grad(loss, list(params.values()))
+                loss = self.loss_fn(model_fn(params, X), y)
+                grad = (  # a parameter an untaken cond branch holds gets a zero gradient
+                    torch.autograd.grad(loss, list(params.values()), allow_unused=True,
+                                        materialize_grads=True)
+                    if loss.requires_grad else [torch.zeros_like(p) for p in params.values()]
+                )
                 total_loss = loss.detach() if total_loss is None else total_loss + loss.detach()
                 total_grad = (
                     list(grad) if total_grad is None

@@ -135,7 +135,7 @@ class EKFACComputer(KFACComputer):
         or for a rank-``r`` group its four accumulated sector sums."""
         lambdas: dict = {}
         for idx, (X, y) in enumerate(self.data):
-            pred, inputs, deltas = self._get_traced(X).apply_with_io(self.params, X)
+            pred, inputs, deltas, _ = self._get_traced(X).apply_with_io(self.params, X)
             grads, corr_eff = self._layer_grads(
                 pred, deltas, y, batch_generator(self.seed, idx, self.device),
                 self._batch_correction(X),

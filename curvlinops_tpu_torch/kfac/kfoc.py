@@ -167,7 +167,7 @@ class KFOCComputer(KFACComputer):
         together (:func:`batched_top_rank_one_kron_factors`).
         """
         X, y = next(iter(self.data))
-        pred, inputs, deltas = self._get_traced(X).apply_with_io(self.params, X)
+        pred, inputs, deltas, _ = self._get_traced(X).apply_with_io(self.params, X)
         grads, corr_eff = self._layer_grads(
             pred, deltas, y, batch_generator(self.seed, 0, self.device),
             self._batch_correction(X),

@@ -6,13 +6,16 @@ weight-sharing format ``[batch, shared, features]``:
 
 - linear inputs ``[B, *share, d_in]`` flatten their sharing dims (EXPAND) or
   average them (REDUCE);
-- conv inputs (NCHW) are unfolded to ``[B, Ho*Wo, KH*KW*C]`` with the JAX
-  package's kernel-offset-major, channel-minor ``(KH, KW, C)`` feature
-  order, so factors compare element for element with the JAX package's; the
-  canonical conv weight ``[O, C, KH, KW] -> [O, KH*KW*C]`` matches it.
-  REDUCE needs only the location mean of the patches, which
-  :func:`extract_averaged_patches` takes from strided slices of the input
-  without the patch tensor;
+- conv inputs (``[B, C, *spatial]``, one or two spatial axes) are unfolded
+  to ``[B, prod(out), prod(K)*C]`` with the JAX package's kernel-offset-major,
+  channel-minor ``(*K, C)`` feature order, so factors compare element for
+  element with the JAX package's; the canonical conv weight
+  ``[O, C, *K] -> [O, prod(K)*C]`` matches it. Dilated kernels take every
+  ``d``-th element of a window; grouped convs average the input over the
+  channel groups first (JAX's ``_group_average_channels``, exact when the
+  input channels are replicated across groups). REDUCE needs only the
+  location mean of the patches, which :func:`extract_averaged_patches`
+  takes from strided slices of the input without the patch tensor;
 - output gradients flatten (EXPAND) or sum (REDUCE) their sharing dims to
   ``[V, B, S, d_out]``.
 
@@ -28,12 +31,17 @@ correction ``num_loss_terms^2 / (per_example_terms * N_data)`` for mean
 reduction. :func:`eigenvalue_correction` holds EKFAC's corrected
 eigenvalues.
 
-Conv metadata (from :mod:`curvlinops_tpu_torch.kfac.collector`): ``stride``
-``(sh, sw)``, ``padding`` ``((lo_h, hi_h), (lo_w, hi_w))``, ``kernel``
-``(kh, kw)``, ``C``, ``groups``, ``w_shape`` ``(O, C, kh, kw)``.
+Conv metadata (from :mod:`curvlinops_tpu_torch.kfac.collector`), one entry
+per spatial axis: ``stride``, ``padding`` (``(lo, hi)`` pairs), ``kernel``,
+``dilation``; ``C``, ``groups``, ``w_shape`` ``(O, C // groups, *K)`` (the
+weight operand's), and for a function-level use the views from the weight
+leaf to that operand (``w_views``).
 """
 
 from __future__ import annotations
+
+import itertools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -41,18 +49,23 @@ import torch.nn.functional as F
 from curvlinops_tpu_torch.curvature.loss_hessian import KFACType
 
 
-def canonical_conv_weight(W: torch.Tensor) -> torch.Tensor:
-    """``[O, C, KH, KW, *cols] -> [O, KH*KW*C, *cols]`` in (KH, KW, C) order."""
-    rest = tuple(range(4, W.ndim))
-    Wp = W.permute(0, 2, 3, 1, *rest)
-    return Wp.reshape(W.shape[0], -1, *W.shape[4:])
+def canonical_conv_weight(W: torch.Tensor, meta: dict) -> torch.Tensor:
+    """A conv weight leaf (with trailing column axes) to canonical
+    ``[O, prod(K)*C, *cols]`` in ``(*K, C)`` order: the leaf's views replayed
+    to the ``[O, C, *K]`` operand, then its channel axis moved last."""
+    W = apply_weight_views(W, meta.get("w_views") or ())
+    n = len(meta["w_shape"])
+    Wp = W.permute(0, *range(2, n), 1, *range(n, W.ndim))
+    return Wp.reshape(W.shape[0], -1, *W.shape[n:])
 
 
 def canonical_conv_weight_inverse(W_canon: torch.Tensor, meta: dict) -> torch.Tensor:
-    """Inverse of :func:`canonical_conv_weight` (back to ``[O, C, KH, KW, *cols]``)."""
-    O, C, KH, KW = meta["w_shape"]
-    rest = tuple(range(4, W_canon.ndim + 2))
-    return W_canon.reshape(O, KH, KW, C, *W_canon.shape[2:]).permute(0, 3, 1, 2, *rest)
+    """Inverse of :func:`canonical_conv_weight` (back to the leaf layout)."""
+    O, C, *K = meta["w_shape"]
+    n, cols = len(meta["w_shape"]), W_canon.shape[2:]
+    W = W_canon.reshape(O, *K, C, *cols)
+    W = W.permute(0, n - 1, *range(1, n - 1), *range(n, n + len(cols)))
+    return invert_weight_views(W, meta.get("w_views") or (), n)
 
 
 def apply_weight_views(W: torch.Tensor, views) -> torch.Tensor:
@@ -143,14 +156,14 @@ def embedding_input_counts(idx: torch.Tensor, vocab: int, dtype: torch.dtype) ->
     return counts.to(torch.float64 if dtype == torch.float64 else torch.float32)
 
 
-def conv_output_size(size: int, kernel: int, stride: int, pads: tuple) -> int:
-    """Output length of a zero-padded, undilated convolution along one dim."""
-    return (size + pads[0] + pads[1] - kernel) // stride + 1
+def conv_output_size(size: int, kernel: int, stride: int, pads: tuple, dilation: int = 1) -> int:
+    """Output length of a zero-padded convolution along one dim."""
+    return (size + pads[0] + pads[1] - dilation * (kernel - 1) - 1) // stride + 1
 
 
 def _group_average_channels(x: torch.Tensor, meta: dict) -> torch.Tensor:
-    """Average an NCHW input over channel groups (the reference's grouped
-    convolutions; the collector refuses ``groups != 1`` today)."""
+    """Average a ``[B, C, *spatial]`` input over channel groups (JAX's
+    ``_group_average_channels``, the reference's grouped convolutions)."""
     groups = meta.get("groups", 1)
     if groups == 1:
         return x
@@ -158,44 +171,60 @@ def _group_average_channels(x: torch.Tensor, meta: dict) -> torch.Tensor:
     return x.reshape(B, groups, C // groups, *x.shape[2:]).mean(dim=1)
 
 
+def _padded(x: torch.Tensor, meta: dict) -> torch.Tensor:
+    """The group-averaged input, zero-padded: ``F.pad`` takes the last axis first."""
+    pads = [p for lo_hi in reversed(meta["padding"]) for p in lo_hi]
+    return F.pad(_group_average_channels(x, meta), pads)
+
+
 def extract_conv_patches(x: torch.Tensor, meta: dict) -> torch.Tensor:
-    """Unfold an NCHW conv input to ``[B, Ho*Wo, KH*KW*C]`` in (KH, KW, C) order.
+    """Unfold a ``[B, C, *spatial]`` conv input to ``[B, prod(out), prod(K)*C]``
+    in ``(*K, C)`` order.
 
     The patches are a strided view of the zero-padded input
-    (``Tensor.unfold``), made contiguous in the canonical order by one copy
-    (``F.unfold`` launches one im2col kernel per sample on CUDA).
+    (``Tensor.unfold`` over each dilated window, then every ``d``-th element),
+    made contiguous in the canonical order by one copy (``F.unfold`` launches
+    one im2col kernel per sample on CUDA).
     """
-    (ph0, ph1), (pw0, pw1) = meta["padding"]
-    kh, kw = meta["kernel"]
-    sh, sw = meta["stride"]
-    x = F.pad(_group_average_channels(x, meta), (pw0, pw1, ph0, ph1))
-    win = x.unfold(2, kh, sh).unfold(3, kw, sw)  # [B, C, Ho, Wo, kh, kw]
-    B, C, Ho, Wo = win.shape[:4]
-    return win.permute(0, 2, 3, 4, 5, 1).reshape(B, Ho * Wo, kh * kw * C)
+    x = _padded(x, meta)
+    nd = len(meta["kernel"])
+    dilation = meta.get("dilation", (1,) * nd)
+    for i, (k, s, d) in enumerate(zip(meta["kernel"], meta["stride"], dilation)):
+        x = x.unfold(2 + i, d * (k - 1) + 1, s)
+        if d > 1:
+            x = x[..., ::d]
+    # [B, C, *out, *K] -> [B, *out, *K, C]
+    out = x.shape[2 : 2 + nd]
+    x = x.permute(0, *range(2, 2 + 2 * nd), 1)
+    return x.reshape(x.shape[0], math.prod(out), -1)
 
 
 def extract_averaged_patches(x: torch.Tensor, meta: dict) -> torch.Tensor:
-    """Location-averaged conv patches ``[B, 1, KH*KW*C]`` without the
+    """Location-averaged conv patches ``[B, 1, prod(K)*C]`` without the
     ``[B, S, d_in]`` patch tensor.
 
     REDUCE needs only the per-sample mean over output locations of the
     unfolded input: for each kernel offset that is the mean of one strided
-    slice of the zero-padded input.
+    slice of the zero-padded input. The JAX package's refusals (batch
+    groups) and fallbacks (input dilation, negative padding) concern convs
+    that ``F.conv1d``/``F.conv2d`` cannot express; a crop is an ``F.pad`` of
+    the input before the call.
     """
-    x = _group_average_channels(x, meta)
-    (ph0, ph1), (pw0, pw1) = meta["padding"]
-    kh, kw = meta["kernel"]
-    sh, sw = meta["stride"]
-    B, C, H, W = x.shape
-    Ho = conv_output_size(H, kh, sh, (ph0, ph1))
-    Wo = conv_output_size(W, kw, sw, (pw0, pw1))
-    x = F.pad(x, (pw0, pw1, ph0, ph1))
-    means = [
-        x[:, :, i : i + (Ho - 1) * sh + 1 : sh, j : j + (Wo - 1) * sw + 1 : sw].mean(dim=(2, 3))
-        for i in range(kh)
-        for j in range(kw)
-    ]  # [B, C] per offset, kernel-offset-major
-    return torch.stack(means, dim=1).reshape(B, 1, kh * kw * C)
+    x = _padded(x, meta)
+    kernel, strides = meta["kernel"], meta["stride"]
+    nd = len(kernel)
+    dilation = meta.get("dilation", (1,) * nd)
+    B, C = x.shape[:2]
+    out = [conv_output_size(n, k, s, (0, 0), d)
+           for n, k, s, d in zip(x.shape[2:], kernel, strides, dilation)]
+    means = []
+    for offset in itertools.product(*(range(k) for k in kernel)):  # kernel-offset-major
+        window = tuple(
+            slice(o * d, o * d + (n - 1) * s + 1, s)
+            for o, d, n, s in zip(offset, dilation, out, strides)
+        )
+        means.append(x[(slice(None), slice(None), *window)].mean(dim=tuple(range(2, 2 + nd))))
+    return torch.stack(means, dim=1).reshape(B, 1, -1)
 
 
 def input_to_sharing_format(

@@ -104,7 +104,7 @@ def make_to_canonical(
                 continue
             W, kind = v[group.weight_path], group.uses[0].kind
             if kind == "conv":
-                canon = kmath.canonical_conv_weight(W)
+                canon = kmath.canonical_conv_weight(W, group.uses[0].meta)
             elif kind == "embedding":
                 canon = kmath.canonical_embedding_weight(W)
             else:  # dense, also stacked [L, d_out, d_in]

@@ -88,12 +88,14 @@ def _owner(model: nn.Module, name: str) -> nn.Module:
 
 
 def _layout_to_torch(t: torch.Tensor, owner: nn.Module, leaf: str) -> torch.Tensor:
-    """One leaf from the JAX layout: conv HWIO -> OIHW, dense ``[in, out]``
+    """One leaf from the JAX layout: conv HWIO -> OIHW (WIO -> OIW), dense ``[in, out]``
     -> ``[out, in]`` (each slice of a stacked ``[L, in, out]``); everything
     else (biases, embedding tables, norm ``scale``/``bias``, CLS token and
     position table) passes unchanged."""
     if leaf == "weight" and isinstance(owner, nn.Conv2d):
         return t.permute(3, 2, 0, 1)
+    if leaf == "weight" and isinstance(owner, nn.Conv1d):  # WIO -> OIW
+        return t.permute(2, 1, 0)
     if leaf == "weight" and isinstance(owner, (nn.Linear, StackedLinear)):
         return t.transpose(-1, -2)
     return t

@@ -131,7 +131,14 @@ def vmap_columns(fn: Callable, M: Any, max_columns: int | None = None) -> Any:
     at once (chunks of at most that many, concatenated).
     """
     K = pytree.tree_leaves(M)[0].shape[-1]
-    batched = torch.func.vmap(fn, in_dims=-1, out_dims=-1)
+    # out_dims=0, then the columns moved last: torch's vmap fails to expand
+    # an output that does not depend on the columns (the zero gradient of a
+    # parameter an untaken cond branch holds) to a trailing batch axis
+    mapped = torch.func.vmap(fn, in_dims=-1, out_dims=0)
+
+    def batched(cols):
+        return pytree.tree_map(lambda t: t.movedim(0, -1), mapped(cols))
+
     if max_columns is None or K <= max_columns:
         return batched(M)
     outs = [

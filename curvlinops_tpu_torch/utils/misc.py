@@ -7,9 +7,9 @@ the operators differentiate w.r.t. a dict of named parameters and apply the
 module with ``torch.func.functional_call(model, params, (X,))``, so every
 other parameter and buffer stays fixed. ``make_functional_call`` is that
 adapter under the JAX package's name (which adapts flax and haiku modules
-there); ``allclose_report`` prints mismatching entries, ``split_list``
-cuts a sequence into chunks and ``full_float32_matmul`` turns TF32 off for
-the products it encloses.
+there), with a module's ``torch.cond`` calls inlined (``utils/cond.py``);
+``allclose_report`` prints mismatching entries, ``split_list`` cuts a sequence into
+chunks and ``full_float32_matmul`` turns TF32 off for the products it encloses.
 """
 
 from __future__ import annotations
@@ -21,15 +21,25 @@ import numpy as np
 import torch
 from torch import nn
 
+from curvlinops_tpu_torch.utils.cond import inline_cond
+
 
 def as_model_fn(model: nn.Module | Callable) -> Callable[[Any, Any], torch.Tensor]:
-    """``(params, X) -> prediction`` for an ``nn.Module`` or a plain callable.
+    """``(params, X) -> prediction`` for an ``nn.Module`` (whose
+    ``torch.cond`` calls run inline,
+    :func:`~curvlinops_tpu_torch.utils.cond.inline_cond`, so that
+    ``torch.func`` can differentiate it) or a plain callable, returned as it
+    is (as the JAX package returns one).
 
     Raises:
-        ValueError: If ``model`` is neither.
+        ValueError: If it is neither.
     """
     if isinstance(model, nn.Module):
-        return lambda params, X: torch.func.functional_call(model, params, (X,))
+        def model_fn(params, X):
+            with inline_cond():
+                return torch.func.functional_call(model, params, (X,))
+
+        return model_fn
     if callable(model):
         return model
     raise ValueError(

@@ -843,3 +843,124 @@ def test_conv1d_flash_gpt_taps_on_card(cuda):
                              (ops["conv1d"]._ggT, ops["linear"]._ggT)):
             if gi in mine:
                 assert rel_err(mine[gi], theirs[index[g.key]]) < 1e-5, g.name
+
+
+# ---------------------------------------------------------------------- #
+# torch.cond-gated layers, the collector's conv coverage, the fuzz twins
+# ---------------------------------------------------------------------- #
+class _GatedMLP(torch.nn.Module):
+    """A tanh MLP 6 -> 8 -> 3 with a residual layer 8 -> 8 between, run
+    through ``torch.cond`` on its input's mean: always taken, never taken,
+    or (``"two"``) taken against a second layer of distinct weights
+    (``fc1b``)."""
+
+    def __init__(self, mode: str):
+        super().__init__()
+        self.mode = mode
+        self.fc0, self.fc1, self.fc2 = (torch.nn.Linear(6, 8), torch.nn.Linear(8, 8),
+                                        torch.nn.Linear(8, 3))
+        if mode == "two":
+            self.fc1b = torch.nn.Linear(8, 8)
+
+    def forward(self, x):  # noqa: D102
+        h = torch.tanh(self.fc0(x))
+        other = self.fc1b if self.mode == "two" else torch.zeros_like
+        pred = h.mean() > (1e30 if self.mode == "untaken" else -1e30)
+        return self.fc2(h + torch.cond(pred, self.fc1, other, (h,)))
+
+
+def _gated_mlp(mode, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    model = _GatedMLP(mode)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen))
+    X, y = torch.randn(4, 5, 6, generator=gen), torch.randn(4, 5, 3, generator=gen)
+    return model.double().to(device), [(X.double().to(device), y.double().to(device))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["taken", "untaken", "two"])
+def test_cond_kfac_card_matches_cpu(cuda, mode):
+    """KFAC (type-2, with the determinism probe) of a cond-gated MLP on the
+    card against the CPU, float64, to 1e-12; the untaken layer's matvec rows
+    are exactly 0.0 on both."""
+    from curvlinops_tpu_torch.losses import MSELoss
+
+    untaken = {"taken": (), "untaken": ("fc1.weight", "fc1.bias"),
+               "two": ("fc1b.weight", "fc1b.bias")}[mode]
+    out = []
+    for device in ("cpu", cuda):
+        model, data = _gated_mlp(mode, device)
+        params = dict(model.named_parameters())
+        op = KFACLinearOperator(model, MSELoss("mean"), params, data, fisher_type="type-2")
+        gen = torch.Generator().manual_seed(1)
+        got = op @ {n: torch.randn(p.shape, generator=gen, dtype=p.dtype).to(device)
+                    for n, p in params.items()}
+        assert all(got[n].abs().max().item() == 0.0 for n in untaken)
+        assert all(bool(t.isfinite().all()) for t in got.values())
+        out.append(torch.cat([t.reshape(-1).cpu() for t in got.values()]))
+    assert rel_err(out[1], out[0]) < 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("approx", ["expand", "reduce"])
+def test_grouped_dilated_conv_kfac_on_card(cuda, approx):
+    """A grouped (2 groups, group-replicated input) and dilated conv, then a
+    1x1 conv: KFAC equals the block-diagonal dense GGN on the card and the
+    CPU's KFAC, float64 (the kernel's gate declines it: the plain path)."""
+    from curvlinops_tpu_torch.losses import MSELoss
+    from tests.torch_fuzz_cases import blockdiag_ggn, dense_of
+
+    dense = []
+    for device in ("cpu", cuda):
+        gen = torch.Generator().manual_seed(3)
+        conv = torch.nn.Conv2d(4, 4, 3, groups=2, dilation=2, padding="same")
+        head = torch.nn.Conv2d(4, 2, 1)
+        with torch.no_grad():
+            for p in (*conv.parameters(), *head.parameters()):
+                p.copy_(0.4 * torch.randn(p.shape, generator=gen))
+        pool = approx == "reduce"
+        model = torch.nn.Sequential(conv, head).double().to(device)
+        base = torch.randn(2, 2, 7, 7, generator=gen, dtype=torch.float64)
+        X = torch.cat([base, base], dim=1).to(device)
+        out_fn = (lambda z: z.mean(dim=(2, 3))) if pool else (lambda z: z.permute(0, 2, 3, 1))
+        wrapped = torch.nn.Sequential(model, _Lambda(out_fn))
+        y = torch.randn(out_fn(model(X)).shape, generator=gen, dtype=torch.float64).to(device)
+        params = dict(wrapped.named_parameters())
+        kfac = KFACLinearOperator(wrapped, MSELoss("sum"), params, [(X, y)],
+                                  fisher_type="type-2", kfac_approx=approx)
+        dense.append(dense_of(kfac).cpu())
+        expected = blockdiag_ggn(wrapped, MSELoss("sum"), params, [(X, y)], kfac.groups)
+        assert rel_err(dense[-1], expected.cpu()) < 1e-10
+    assert rel_err(dense[1], dense[0]) < 1e-12
+
+
+class _Lambda(torch.nn.Module):
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x):  # noqa: D102
+        return self.fn(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["exact_or_refuse", "scan", "linear_sharing", "conv_sharing"])
+def test_fuzz_first_chunk_on_card(cuda, family):
+    """The first chunk of each collector fuzz family (JAX's seeds; no JAX) on
+    the card in float64: exact against the dense GGN or refused, above
+    JAX's non-vacuity floor; the scanned stacks equal their unrolled twins."""
+    from tests import torch_fuzz_cases as fc
+
+    if family == "scan":
+        for seed in range(10):
+            fc.scan_equals_unrolled(seed, cuda, torch.float64)
+        return
+    build, n, atol = {
+        "exact_or_refuse": (fc.build_case, 20, 1e-5),
+        "linear_sharing": (fc.build_linear_sharing_case, 20, 1e-5),
+        "conv_sharing": (fc.build_conv_sharing_case, 15, 2e-5),
+    }[family]
+    built, refused = fc.run_chunk(build, range(n), atol, cuda, torch.float64)
+    assert built >= n // 3, (built, refused)

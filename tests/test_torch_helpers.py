@@ -21,6 +21,12 @@ from curvlinops_tpu.models import gpt as jgpt
 from curvlinops_tpu.models import resnet as jresnet
 from curvlinops_tpu_torch.models import common as tcommon
 from curvlinops_tpu_torch.models import resnet as tresnet
+from tests.torch_fuzz_cases import (  # noqa: F401  (JAX-free; shared with the card tests)
+    assert_close,
+    blockdiag_ggn,
+    blockdiag_projection,
+    dense_of,
+)
 
 NARROW_WIDTHS = tresnet.NARROW_WIDTHS
 TEST_THREADS = 1  # torch intra-op threads while a port test module runs
@@ -44,16 +50,6 @@ def capped_torch_threads():
         torch.set_num_threads(before)
 
     return _capped
-
-
-def assert_close(actual, expected, rtol: float, atol: float, name: str) -> None:
-    """``allclose`` on numpy copies of tensors/arrays, with a diff report."""
-    a = actual.detach().cpu().numpy() if isinstance(actual, torch.Tensor) else np.asarray(actual)
-    b = expected.detach().cpu().numpy() if isinstance(expected, torch.Tensor) else np.asarray(expected)
-    assert a.shape == b.shape, f"{name}: shape {a.shape} vs {b.shape}"
-    if not np.allclose(a, b, rtol=rtol, atol=atol):
-        err = np.abs(a - b).max()
-        raise AssertionError(f"{name}: max abs diff {err} (rtol={rtol}, atol={atol})")
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -216,37 +212,19 @@ def random_jax_vector(params, seed: int):
     return jax.tree.map(lambda p: rng.standard_normal(np.shape(p)).astype(np.float32), params)
 
 
-def dense_of(op) -> torch.Tensor:
-    """``op @ I``: an operator's dense matrix on its flat parameter order."""
-    return op @ torch.eye(op.shape[1], dtype=op.dtype)
-
-
-def blockdiag_projection(dense: torch.Tensor, params: dict, groups) -> torch.Tensor:
-    """``dense`` with every entry outside the KFAC block structure of
-    ``groups`` zeroed (a joint group keeps its weight-bias cross block), on
-    the flat order of ``params``: ``tests/test_kfac.py::blockdiag_projection``
-    by parameter name."""
-    offsets, start = {}, 0
-    for name, p in params.items():
-        offsets[name] = range(start, start + p.numel())
-        start += p.numel()
-    out = torch.zeros_like(dense)
-    for group in groups:
-        idx = list(offsets[group.weight_path]) if group.weight_path is not None else []
-        if group.bias_path is not None and (group.joint or group.weight_path is None):
-            idx += list(offsets[group.bias_path])
-        idx = torch.tensor(idx)
-        out[idx[:, None], idx[None, :]] = dense[idx[:, None], idx[None, :]]
-    return out
-
-
-def blockdiag_ggn(model, loss_fn, params: dict, data, groups) -> torch.Tensor:
-    """The port's dense GGN of ``model`` projected onto the KFAC blocks of
-    ``groups``: the exactness oracle of linear models under MSE."""
-    from curvlinops_tpu_torch.curvature.ggn import GGNLinearOperator
-
-    G = dense_of(GGNLinearOperator(model, loss_fn, params, data, check_deterministic=False))
-    return blockdiag_projection(G, params, groups)
+def port_order(jparams, model, names) -> torch.Tensor:
+    """For each entry of the port's flat parameter vector over ``names``,
+    its position in the JAX package's flat order of ``jparams`` (the order
+    of a JAX operator's ``todense()``), through ``from_jax_params``' layout
+    maps: ``dense_jax[perm][:, perm]`` is in the port's order."""
+    leaves, treedef = jax.tree.flatten(jparams)
+    index, start = [], 0
+    for leaf in leaves:
+        size = int(np.prod(np.shape(leaf)))
+        index.append(np.arange(start, start + size, dtype=np.float64).reshape(np.shape(leaf)))
+        start += size
+    mapped = tcommon.from_jax_params(jax.tree.unflatten(treedef, index), model)
+    return torch.cat([mapped[n].reshape(-1) for n in names]).round().long()
 
 
 _jit_init_gpt = jax.jit(jgpt.init_gpt, static_argnums=1)

@@ -32,11 +32,11 @@ _threads = capped_torch_threads()
 GEOMETRIES = {"3x3s1": (3, 1, 8), "3x3s2": (3, 2, 8), "1x1s2": (1, 2, 8)}
 
 
-def _metas(C, kernel, stride, size, pads=None, dilation=1, O=8):
+def _metas(C, kernel, stride, size, pads=None, dilation=1, O=8, groups=1):
     """Matching JAX (NHWC/HWIO) and port (NCHW/OIHW) conv metadata."""
     if pads is None:
         pads = (same_pads(size, kernel, stride),) * 2
-    w_shape = (kernel, kernel, C, O)
+    w_shape = (kernel, kernel, C // groups, O)
     jmeta = {
         "window_strides": (stride, stride),
         "padding": pads,
@@ -45,7 +45,7 @@ def _metas(C, kernel, stride, size, pads=None, dilation=1, O=8):
         "dimension_numbers": jax.lax.conv_dimension_numbers(
             (1, size, size, C), w_shape, ("NHWC", "HWIO", "NHWC")
         ),
-        "feature_group_count": 1,
+        "feature_group_count": groups,
         "batch_group_count": 1,
         "w_shape": w_shape,
     }
@@ -54,9 +54,9 @@ def _metas(C, kernel, stride, size, pads=None, dilation=1, O=8):
         "padding": pads,
         "kernel": (kernel, kernel),
         "dilation": (dilation, dilation),
-        "groups": 1,
+        "groups": groups,
         "C": C,
-        "w_shape": (O, C, kernel, kernel),
+        "w_shape": (O, C // groups, kernel, kernel),
     }
     return jmeta, tmeta
 
@@ -110,7 +110,7 @@ def test_plain_conv_covariance_matches_pallas(geometry, bias):
     np.testing.assert_allclose(cov.numpy(), np.asarray(pallas_cov), rtol=RTOL, atol=ATOL)
 
 
-# (C, kernel, stride, size, pads, dilation)
+# (C, kernel, stride, size, pads, dilation[, groups])
 GATE_TABLE = [
     (16, 3, 1, 8, None, 1),  # smallest eligible backbone conv
     (24, 3, 2, 8, None, 1),
@@ -122,13 +122,17 @@ GATE_TABLE = [
     (3, 7, 2, 32, None, 1),  # RGB 7x7 stem
     (16, 3, 1, 8, None, 2),  # dilation
     (16, 3, 1, 8, ((-1, 0), (0, 0)), 1),  # cropping
+    (32, 3, 1, 8, None, 1, 2),  # groups
 ]
 
 
-@pytest.mark.parametrize("row", GATE_TABLE, ids=lambda r: f"C{r[0]}k{r[1]}s{r[2]}d{r[5]}")
+@pytest.mark.parametrize(
+    "row", GATE_TABLE,
+    ids=lambda r: f"C{r[0]}k{r[1]}s{r[2]}d{r[5]}" + (f"g{r[6]}" if len(r) > 6 else ""),
+)
 def test_gate_agrees_with_pallas_gate(row):
-    C, kernel, stride, size, pads, dilation = row
-    jmeta, tmeta = _metas(C, kernel, stride, size, pads, dilation)
+    C, kernel, stride, size, pads, dilation, *groups = row
+    jmeta, tmeta = _metas(C, kernel, stride, size, pads, dilation, groups=(groups or [1])[0])
     for bias_pad in (None, 1.0):
         expected = pallas_conv_cov_supported((2, size, size, C), jmeta, bias_pad)
         assert kernels.conv_cov_kernel_supported((2, C, size, size), tmeta) == expected

@@ -307,8 +307,12 @@ def test_outside_read_is_a_tied_use():
     "model,match",
     [
         (_ReadsWeightOutside(), r"read outside its layer calls by \['sum'\]"),
-        (nn.Sequential(nn.Conv2d(3, 3, 3, dilation=2), nn.Flatten()), "dilation"),
-        (nn.Sequential(nn.Conv2d(3, 3, 3, groups=3), nn.Flatten()), "groups"),
+        # dilation and groups build (test_torch_kfac_cond.py holds them against
+        # JAX); a padding mode other than zeros stays refused with either
+        (nn.Sequential(nn.Conv2d(3, 3, 3, dilation=2, padding=2, padding_mode="reflect"),
+                       nn.Flatten()), "padding_mode='reflect'"),
+        (nn.Sequential(nn.Conv2d(3, 3, 3, groups=3, padding=1, padding_mode="circular"),
+                       nn.Flatten()), "padding_mode='circular'"),
         (nn.Sequential(nn.LayerNorm(3), nn.Linear(3, 2)), "not the weight/bias"),
     ],
     ids=["outside_read", "dilation", "groups", "layernorm"],
