@@ -122,7 +122,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     factors and the matvec at the transposed vector (1e-5) against the
     ``nn.Linear`` GPT's; each build's time and flash launches (counted from
     0 over it, at least one per layer each), both matvecs' times;
-13. prints a JSON line of kernel results and, last, a JSON status line.
+13. the ``torch.cond``-gated GPT (``cond_phases``) and the data-parallel
+    phase (``parallel_phases``, one JSON line per item), float32, on a
+    one-process NCCL mesh from ``make_mesh()``: on ResNet-18 at batch 512,
+    the MC GGN matvec with ``mesh=`` against without it (and both times:
+    the mesh path's overhead), ``gradient_and_loss``, KFAC's build (19
+    conv kernel launches) with its factors, exact-damped and rank-256
+    inverses through the sharded ``eigh``, and EKFAC's eigenvalues, each
+    against the mesh-less result; KFAC on the flash GPT-2 small with
+    ``mesh=`` (flash 24 / 12 / 12); and ResNet-18's GGN matvec over 8 host
+    batches of 64, blocking copies against ``PrefetchToDevice(size=2)``
+    (times, busy shares, results equal);
+14. prints a JSON line of kernel results and, last, a JSON status line.
 
 Each kernel's bound is the larger of its bytes (each input read once, each
 output written once) at 3.35 TB/s and its float32 products at the card's
@@ -356,16 +367,19 @@ def main() -> None:
     marks.append(time.perf_counter())
     cond_launches = cond_phases(torch, dev, smi)
     marks.append(time.perf_counter())
+    parallel_launches = parallel_phases(torch, dev, smi)
+    marks.append(time.perf_counter())
     for entry in entries:
         entry["launches"] += phase_launches[entry["name"]]
         entry["launches"] += stacked_launches.get(entry["name"], 0)
         entry["launches"] += collector_launches.get(entry["name"], 0)
         entry["launches"] += cond_launches.get(entry["name"], 0)
+        entry["launches"] += parallel_launches.get(entry["name"], 0)
     print("phase seconds: ResNet-18 kernel and KFAC {:.1f}, GPT kernels and KFAC {:.1f}, "
           "curvature operators {:.1f}, solvers {:.1f}, KFAC family {:.1f}, estimators, "
           "GGN diagonal and held linearizations {:.1f}, transformer family {:.1f}, "
           "collector (bias-only, Conv1D layout) {:.1f}, cond-gated GPT and fuzz twins "
-          "{:.1f}".format(
+          "{:.1f}, data parallelism and prefetch {:.1f}".format(
               *(b - a for a, b in zip(marks, marks[1:]))))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
@@ -2840,6 +2854,231 @@ def fuzz_on_card(torch, dev) -> dict:
     out["scan_equals_unrolled"] = 10
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+# ---------------------------------------------------------------------- #
+# data parallelism (a one-process NCCL mesh) and the prefetching pipeline
+# ---------------------------------------------------------------------- #
+MESH_MATVEC_TOL = 1e-5  # the GGN matvec and the gradient, mesh against mesh-less, relative
+MESH_FACTOR_TOL = 1e-6  # KFAC factors, mesh against mesh-less
+MESH_INVERSE_TOL = 1e-4  # exact-damped and rank-256 inverses applied to the gradient
+MESH_RANK = 256
+MESH_CONV_LAUNCHES = 19  # ResNet-18's kernel-eligible convs: one launch each a build
+PREFETCH_BATCHES = 8  # ResNet-18's 512 images as this many host batches
+PREFETCH_TOL = 1e-6  # the prefetched matvec against the blocking loop's, relative
+
+
+def par_report(item: str, **fields) -> None:
+    """One JSON line of the data-parallel phase."""
+    print(json.dumps({"parallel_phase": item, **fields}))
+
+
+class BlockingToDevice:
+    """Host batches moved with a blocking ``.to(dev)`` as they are read: the
+    loop ``PrefetchToDevice`` replaces."""
+
+    def __init__(self, batches, dev):
+        self.batches, self.dev = batches, dev
+
+    def __iter__(self):
+        for X, y in self.batches:
+            yield X.to(self.dev), y.to(self.dev)
+
+
+def parallel_phases(torch, dev, smi: str) -> dict:
+    """Data parallelism on a one-process NCCL mesh from ``make_mesh()``, and
+    the prefetching pipeline; float32, TF32 off, every gate fatal.
+
+    ResNet-18 at B=512 (one batch, MC): the GGN matvec (MC, one sample) with
+    ``mesh=`` against without it (CUDA events, median of 10: the mesh
+    path's overhead at world size one), ``gradient_and_loss``, KFAC's build
+    (19 conv kernel launches on the process's slice; factors within
+    ``MESH_FACTOR_TOL``), the exact-damped and rank-256 inverses through the
+    sharded ``eigh`` applied to the gradient, EKFAC's corrected eigenvalues
+    with cuDNN's deterministic algorithms (19 launches; within
+    ``MESH_MATVEC_TOL``); the unrolled flash GPT-2 small (B=4, T=1024, MC, no
+    probe): KFAC's build with ``mesh=`` (flash 24 / 12 / 12, factors within
+    ``MESH_FACTOR_TOL``); ResNet-18's exact GGN matvec over the same 512
+    images as 8 host batches of 64, moved by a blocking ``.to(dev)`` loop
+    and by ``PrefetchToDevice(size=2)`` (results to ``PREFETCH_TOL``,
+    median of 10 each, one profiled matvec each). Returns the mesh builds'
+    launches by kernel. The process group is taken down at the end if this
+    phase made it."""
+    import torch.distributed as dist
+
+    from curvlinops_tpu_torch import make_mesh
+
+    ours = not dist.is_initialized()
+    mesh = make_mesh()
+    try:
+        backend = str(dist.get_backend())
+        if "nccl" not in backend or dist.get_world_size() != 1:
+            raise RuntimeError(f"parallel phase: backend {backend}, world {dist.get_world_size()}")
+        return mesh_phases(torch, dev, smi, mesh)
+    finally:
+        if ours:
+            dist.destroy_process_group()
+
+
+def mesh_phases(torch, dev, smi: str, mesh) -> dict:
+    """The items of :func:`parallel_phases` on ``mesh``."""
+    from curvlinops_tpu_torch import (
+        EKFACLinearOperator,
+        GGNLinearOperator,
+        KFACLinearOperator,
+        PrefetchToDevice,
+    )
+    from curvlinops_tpu_torch.kfac import kernels
+    from curvlinops_tpu_torch.models import flash_attention as fa
+    from curvlinops_tpu_torch.models import gpt as tgpt
+    from curvlinops_tpu_torch.models.resnet import cifar10_resnet18
+
+    conv = kernels.conv_input_covariance
+    launches = {"conv_input_covariance": 0, **{f"flash_attention_{n}": 0 for n in fa.launches}}
+
+    def worst(a: dict, b: dict) -> float:
+        return max(rel_err(a[k], b[k]) for k in b)
+
+    # ---- ResNet-18, B=512: GGN matvec, gradient -------------------------- #
+    problem = cifar10_resnet18(batch_size=BATCH, seed=0, device=dev)
+    full = (problem.model, problem.loss_fn, problem.params, problem.data)
+    gen = torch.Generator(dev).manual_seed(3)
+    v = {n: torch.randn(t.shape, generator=gen, device=dev) for n, t in problem.params.items()}
+    ggn = {m: GGNLinearOperator(*full, mc_samples=1, check_deterministic=False, mesh=m)
+           for m in (None, mesh)}
+    err = rel_err(flat(ggn[mesh] @ v), flat(ggn[None] @ v))
+    times = {m: event_times(lambda A=A: A @ v, torch, reps=10) for m, A in ggn.items()}
+    med = {m: statistics.median(t) for m, t in times.items()}
+    par_report("GGN (MC) matvec, mesh vs mesh-less, ResNet-18", batch=BATCH,
+               rel_err=err, tol=MESH_MATVEC_TOL, mesh_ms=med[mesh], meshless_ms=med[None],
+               mesh_ms_range=[min(times[mesh]), max(times[mesh])],
+               meshless_ms_range=[min(times[None]), max(times[None])],
+               overhead=med[mesh] / med[None] - 1.0, card=smi)
+    if not err <= MESH_MATVEC_TOL:
+        raise RuntimeError(f"mesh GGN matvec: {err} (tol {MESH_MATVEC_TOL})")
+    (g_mesh, l_mesh), g_ms = timed(torch, ggn[mesh].gradient_and_loss)
+    (g_one, l_one), g1_ms = timed(torch, ggn[None].gradient_and_loss)
+    g_err = max(worst(g_mesh, g_one), rel_err(l_mesh, l_one))
+    par_report("gradient_and_loss, mesh vs mesh-less, ResNet-18", rel_err=g_err,
+               tol=MESH_MATVEC_TOL, mesh_ms=g_ms, meshless_ms=g1_ms, card=smi)
+    if not g_err <= MESH_MATVEC_TOL:
+        raise RuntimeError(f"mesh gradient_and_loss: {g_err} (tol {MESH_MATVEC_TOL})")
+    del ggn, g_mesh, g_one
+    torch.cuda.empty_cache()
+
+    # ---- ResNet-18: KFAC, its inverses, EKFAC ---------------------------- #
+    args = (problem.model, problem.loss_fn, problem.kfac_params, problem.data)
+    grad = gradient(torch, problem)
+    builds = {}
+    for m in (None, mesh):
+        conv.launches = 0
+        builds[m], ms = timed(torch, lambda m=m: KFACLinearOperator(
+            *args, fisher_type="mc", check_deterministic=False, mesh=m))
+        if m is not None:
+            n = conv.launches
+            launches["conv_input_covariance"] += n
+            par_report("KFAC build with mesh=, ResNet-18", build_ms=ms, conv_kernel_launches=n,
+                       card=smi)
+            if n != MESH_CONV_LAUNCHES:
+                raise RuntimeError(f"mesh KFAC build launched the conv kernel {n} times")
+    f_err = max(worst(builds[mesh]._aaT, builds[None]._aaT),
+                worst(builds[mesh]._ggT, builds[None]._ggT))
+    rows = {}
+    for label, kw in (("exact", {}), (f"rank {MESH_RANK}", {"rank": MESH_RANK})):
+        out, ms = {}, {}
+        for m, kfac in builds.items():
+            kw_m = dict(kw, rank_key=torch.Generator().manual_seed(0)) if kw else kw
+            inv, ms[m] = timed(torch, lambda kfac=kfac, kw_m=kw_m: kfac.inverse(
+                damping=0.1, use_exact_damping=True, **kw_m))
+            out[m] = inv @ grad
+        rows[label] = dict(rel_err=rel_err(flat(out[mesh]), flat(out[None])),
+                           mesh_ms=ms[mesh], meshless_ms=ms[None])
+    par_report("KFAC factors and inverses, mesh vs mesh-less, ResNet-18",
+               factor_rel_err=f_err, factor_tol=MESH_FACTOR_TOL, inverse_tol=MESH_INVERSE_TOL,
+               inverses=rows, card=smi)
+    if not (f_err <= MESH_FACTOR_TOL
+            and all(r["rel_err"] <= MESH_INVERSE_TOL for r in rows.values())):
+        raise RuntimeError(f"mesh KFAC: factors {f_err}, inverses {rows}")
+    del builds
+    torch.cuda.empty_cache()
+    # cuDNN's default algorithms sum with atomics: two mesh-less builds'
+    # factors differ by about 7e-8, which rotates the bases of near-equal
+    # eigenvalues, and the corrected eigenvalues in them moved by 9.1e-5
+    # between two mesh-less builds on an H100 at 700 W, so the builds run
+    # cuDNN's deterministic algorithms (two such builds agreed exactly there).
+    # The gathered eigenvectors are row-major where eigh returns them
+    # column-major, so the correction pass's rotations are other GEMMs (1.7e-7
+    # apart on the CPU's narrow ResNet).
+    ekfac, deterministic = {}, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for key, m in (("meshless", None), ("mesh", mesh)):
+            conv.launches = 0
+            ekfac[key], ms = timed(torch, lambda m=m: EKFACLinearOperator(
+                *args, fisher_type="mc", check_deterministic=False, mesh=m))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    n = conv.launches
+    launches["conv_input_covariance"] += n
+    lam = {k: e.corrected_eigenvalues for k, e in ekfac.items()}
+    e_err = worst(lam["mesh"], lam["meshless"])
+    par_report("EKFAC corrected eigenvalues, mesh vs mesh-less, ResNet-18, cuDNN deterministic",
+               rel_err=e_err, tol=MESH_MATVEC_TOL, mesh_build_ms=ms,
+               conv_kernel_launches=n, card=smi)
+    if n != MESH_CONV_LAUNCHES or not e_err <= MESH_MATVEC_TOL:
+        raise RuntimeError(
+            f"mesh EKFAC: {n} conv launches, eigenvalues {e_err} (tol {MESH_MATVEC_TOL})"
+        )
+    del ekfac, grad
+    torch.cuda.empty_cache()
+
+    # ---- ResNet-18: 8 host batches, blocking copies against prefetch ----- #
+    X, y = (t.cpu() for t in problem.data[0])
+    host = list(zip(X.chunk(PREFETCH_BATCHES), y.chunk(PREFETCH_BATCHES)))
+    sources = {"blocking": BlockingToDevice(host, dev),
+               "prefetch": PrefetchToDevice(host, size=2, device=dev)}
+    out, med, busy = {}, {}, {}
+    for name, data in sources.items():
+        A = GGNLinearOperator(problem.model, problem.loss_fn, problem.params, data,
+                              check_deterministic=False)
+        out[name] = flat(A @ v)
+        t = event_times(lambda A=A: A @ v, torch, reps=10)
+        med[name] = (statistics.median(t), min(t), max(t))
+        busy[name] = device_profile(torch, f"GGN matvec, {PREFETCH_BATCHES} host batches, "
+                                           f"{name}", lambda A=A: A @ v)
+    p_err = rel_err(out["prefetch"], out["blocking"])
+    par_report("prefetch: GGN matvec over 8 host batches of 64, ResNet-18", rel_err=p_err,
+               tol=PREFETCH_TOL, blocking_ms=med["blocking"], prefetch_ms=med["prefetch"],
+               blocking_busy=busy["blocking"], prefetch_busy=busy["prefetch"], card=smi)
+    if not p_err <= PREFETCH_TOL:
+        raise RuntimeError(f"prefetched matvec against the blocking loop: {p_err}")
+    del problem, sources, out, v
+    torch.cuda.empty_cache()
+
+    # ---- the flash GPT-2 small: KFAC with mesh= -------------------------- #
+    config = GPT_CONFIG or tgpt.GPTConfig()
+    L = config.n_layer
+    gpt = tgpt.shakespeare_nanogpt(GPT_BATCH, config, seed=0, device=dev, attention_impl="flash")
+    gargs = (gpt.model, gpt.loss_fn, gpt.kfac_params, gpt.data)
+    builds = {}
+    for m in (None, mesh):
+        for n in fa.launches:
+            fa.launches[n] = 0
+        builds[m], ms = timed(torch, lambda m=m: KFACLinearOperator(
+            *gargs, fisher_type="mc", check_deterministic=False, mesh=m))
+    counted = dict(fa.launches)
+    for n, c in counted.items():
+        launches[f"flash_attention_{n}"] += c
+    g_err = max(worst(builds[mesh]._aaT, builds[None]._aaT),
+                worst(builds[mesh]._ggT, builds[None]._ggT))
+    par_report("KFAC build with mesh=, flash GPT-2 small", batch=GPT_BATCH, T=config.block_size,
+               layers=L, build_ms=ms, flash_launches=counted, factor_rel_err=g_err,
+               tol=MESH_FACTOR_TOL, card=smi)
+    if counted != {"fwd": 2 * L, "bwd_dkv": L, "bwd_dq": L} or not g_err <= MESH_FACTOR_TOL:
+        raise RuntimeError(f"mesh KFAC on the flash GPT: launches {counted}, factors {g_err}")
+    del builds, gpt
+    torch.cuda.empty_cache()
+    return launches
 
 
 if __name__ == "__main__":

@@ -21,7 +21,10 @@ operators built on it, their held linearizations (``op.linearized()``,
 (:mod:`curvature.ggn_diagonal`), the stochastic estimators (Hutchinson,
 Hutch++ and XTrace traces, Hutchinson and XDiag diagonals, the squared
 Frobenius norm, stochastic Lanczos quadrature for ``tr(f(A))`` and the
-log-determinant; :mod:`estimators`), and the dense oracles of :mod:`examples`. The TPU
+log-determinant; :mod:`estimators`), data parallelism over
+``torch.distributed`` meshes (``mesh=`` on every operator, :mod:`parallel`),
+the device-prefetching data pipeline (:mod:`utils.prefetch`), and the dense
+oracles of :mod:`examples`. The TPU
 kernels on those paths are hand-written CUDA kernels for Hopper: the conv
 input covariance (``kfac/kernels.py``, ``kfac/csrc/``) and causal flash
 attention, forward and backward (``models/flash_attention.py``,
@@ -73,6 +76,7 @@ from curvlinops_tpu_torch.ops.inverse import (
 )
 from curvlinops_tpu_torch.ops.kronecker import KroneckerProductLinearOperator
 from curvlinops_tpu_torch.ops.submatrix import SubmatrixLinearOperator
+from curvlinops_tpu_torch.parallel import make_mesh, shard_params
 from curvlinops_tpu_torch.risk import CurvatureLinearOperator, EmpiricalRiskOperator
 from curvlinops_tpu_torch.solvers.eigsh import topk_eigenpairs
 from curvlinops_tpu_torch.solvers.lanczos import (
@@ -83,6 +87,7 @@ from curvlinops_tpu_torch.solvers.lanczos import (
     lanczos_eigsh,
 )
 from curvlinops_tpu_torch.utils.misc import make_functional_call
+from curvlinops_tpu_torch.utils.prefetch import PrefetchToDevice, prefetch_to_device
 
 __all__ = [
     "examples",
@@ -138,6 +143,10 @@ __all__ = [
     "slq_logdet",
     # adapters
     "make_functional_call",
+    "PrefetchToDevice",
+    "prefetch_to_device",
+    "make_mesh",
+    "shard_params",
     "GPTConfig",
     "ViTConfig",
     "shakespeare_nanogpt",

@@ -49,7 +49,7 @@ from curvlinops_tpu_torch.curvature.loss_hessian import (
 )
 from curvlinops_tpu_torch.ops.base import close_by_norm
 from curvlinops_tpu_torch.ops.diagonal import DiagonalLinearOperator
-from curvlinops_tpu_torch.risk import batch_generator, default_batch_size
+from curvlinops_tpu_torch.risk import default_batch_size
 from curvlinops_tpu_torch.utils.flatten import tree_add
 from curvlinops_tpu_torch.utils.misc import as_model_fn
 
@@ -154,7 +154,7 @@ class GGNDiagonalLinearOperator(DiagonalLinearOperator):
         num_data: int | None = None,
         check_deterministic: bool = True,
         mesh=None,
-        data_axis: str | None = None,
+        data_axis: str = "data",
         progressbar: bool = False,
     ):
         from curvlinops_tpu_torch.curvature.ggn import GGNLinearOperator
@@ -175,15 +175,13 @@ class GGNDiagonalLinearOperator(DiagonalLinearOperator):
         batch_diag = make_batch_ggn_diagonal(helper._model_fn, loss_fn, mc_samples)
         diag = None
         with torch.no_grad():
-            for idx, (X, y) in enumerate(helper._loop_over_data(desc="ggn_diagonal")):
-                gen = batch_generator(seed, idx, helper.device) if mc_samples > 0 else None
-                out = batch_diag(
-                    helper._params, X, y, helper._get_normalization_factor(X, y), gen
-                )
+            # the helper's per-batch generators (seed, MC iff mc_samples > 0)
+            for X, y, c, gen in helper._shard_loop(desc="ggn_diagonal"):
+                out = batch_diag(helper._params, X, y, c, gen)
                 diag = out if diag is None else tree_add(diag, out)
         if diag is None:
             raise ValueError("Empty dataset.")
-        super().__init__(diag)
+        super().__init__(helper._shards.all_reduce(diag))
 
         self._model_fn, self._loss_fn, self._params = helper._model_fn, loss_fn, helper._params
         self._data, self._mc_samples = data, mc_samples

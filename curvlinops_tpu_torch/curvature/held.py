@@ -42,6 +42,10 @@ has no backward pass, so the policy is applied to the traced graph.
 The flash GPT refuses: its attention Function has no forward mode
 (:data:`~curvlinops_tpu_torch.models.flash_attention.FORWARD_MODE_REFUSAL`),
 as the JAX kernel's ``custom_vjp`` refuses ``jax.linearize``.
+
+On an operator built with ``mesh=``, each process holds the linearization
+of its slice of every batch, and a product is summed over the mesh's data
+axis once (``J`` gathers its rows instead), as the base's products are.
 """
 
 from __future__ import annotations
@@ -55,7 +59,6 @@ from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import CheckpointPolicy
 
 from curvlinops_tpu_torch.ops.base import LinearOperator
-from curvlinops_tpu_torch.risk import batch_generator
 from curvlinops_tpu_torch.utils.flatten import tree_add, tree_scale, vmap_columns
 
 _SAVE = (CheckpointPolicy.MUST_SAVE, CheckpointPolicy.PREFER_SAVE)
@@ -451,12 +454,11 @@ class HeldLinearizationOperator(LinearOperator):
         self._base, self._remat = base, remat
         build, self._combine = _kernels_for(base, remat)
         self._held: list[tuple[Callable, float]] = []
-        self._batch_sizes: list[int] = []
+        self._batch_sizes: list[int] = []  # this process's rows of each batch
         self.held_bytes = 0
-        for idx, (X, y) in enumerate(base._loop_over_data(desc="hold")):
-            gen = batch_generator(base._seed, idx, base.device) if base.USES_RANDOMNESS else None
+        for X, y, c, gen in base._shard_loop(desc="hold"):
             product, nbytes = build(X, y, gen)
-            self._held.append((product, base._get_normalization_factor(X, y)))
+            self._held.append((product, c))
             self._batch_sizes.append(base._batch_size_fn(X))
             self.held_bytes += nbytes
         if not self._held:
@@ -464,18 +466,21 @@ class HeldLinearizationOperator(LinearOperator):
 
     @torch.no_grad()
     def _matmat(self, M: Any) -> Any:
-        maxcols = self._base._max_vmap_columns
+        maxcols, shards = self._base._max_vmap_columns, self._base._shards
         if self._combine == "concat_rows":  # J: stack the batches' prediction rows
-            return torch.cat([vmap_columns(f, M, maxcols) for f, _ in self._held], dim=0)
+            blocks = [vmap_columns(f, M, maxcols) for f, _ in self._held]
+            return torch.cat([shards.gather_rows(b) for b in blocks], dim=0)
+        index, count = shards.index, shards.count
         out, offset = None, 0
         for (f, c), B in zip(self._held, self._batch_sizes):
             if self._combine == "slice_rows":  # J^T: pull back each batch's rows
-                res = vmap_columns(f, M[offset:offset + B], maxcols)
-                offset += B
+                start = offset + index * B
+                res = vmap_columns(f, M[start:start + B], maxcols)
+                offset += B * count
             else:
                 res = tree_scale(c, vmap_columns(f, M, maxcols))
             out = res if out is None else tree_add(out, res)
-        return out
+        return shards.all_reduce(out)
 
     def _adjoint(self) -> LinearOperator:
         """The held linearization of the base's adjoint (the Jacobian pair;

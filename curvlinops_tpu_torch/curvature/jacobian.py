@@ -5,7 +5,10 @@ parameter space to the stacked prediction space ``[N, *out]``: per batch, a
 ``torch.func.jvp`` mapped over the columns gives the batch's block of rows,
 and the blocks are concatenated. ``J^T`` slices its input rows per batch
 and adds the pullbacks of one ``torch.func.vjp`` per batch. Both need a
-fixed data order, and each is the other's adjoint.
+fixed data order, and each is the other's adjoint. Under a mesh, ``J``
+gathers each batch's rows from the processes that computed them, and
+``J^T`` pulls back this process's rows of each batch and sums over the
+mesh's data axis.
 """
 
 from __future__ import annotations
@@ -51,12 +54,13 @@ class JacobianLinearOperator(EmpiricalRiskOperator):
     def _matmat(self, M: Any) -> Any:
         model_fn, params = self._model_fn, self._params
         blocks = []
-        for X, _ in self._loop_over_data(desc="jacobian"):
+        for X, _, _, _ in self._shard_loop(desc="jacobian"):
 
             def jvp_one(v, X=X):
                 return torch.func.jvp(lambda p: model_fn(p, X), (params,), (v,))[1]
 
-            blocks.append(vmap_columns(jvp_one, M, self._max_vmap_columns))
+            block = vmap_columns(jvp_one, M, self._max_vmap_columns)
+            blocks.append(self._shards.gather_rows(block))
         return torch.cat(blocks, dim=0)
 
     def _adjoint(self) -> "TransposedJacobianLinearOperator":
@@ -67,6 +71,8 @@ class JacobianLinearOperator(EmpiricalRiskOperator):
             num_data=self._N_data,
             batch_size_fn=self._batch_size_fn,
             check_deterministic=False,
+            mesh=self._mesh,
+            data_axis=self._data_axis,
         )
 
 
@@ -85,16 +91,16 @@ class TransposedJacobianLinearOperator(EmpiricalRiskOperator):
 
     @torch.no_grad()  # as EmpiricalRiskOperator._matmat
     def _matmat(self, M: Any) -> Any:
+        index, count = self._shards.index, self._shards.count
         out, offset = None, 0
-        for X, _ in self._loop_over_data(desc="jacobian_t"):
-            B = self._batch_size_fn(X)
+        for X, _, _, _ in self._shard_loop(desc="jacobian_t"):
+            B = self._batch_size_fn(X)  # this process's rows of the batch
             _, vjp_fn = torch.func.vjp(lambda p: self._model_fn(p, X), self._params)
-            res = vmap_columns(
-                lambda w: vjp_fn(w)[0], M[offset:offset + B], self._max_vmap_columns
-            )
+            start = offset + index * B
+            res = vmap_columns(lambda w: vjp_fn(w)[0], M[start:start + B], self._max_vmap_columns)
             out = res if out is None else tree_add(out, res)
-            offset += B
-        return out
+            offset += B * count
+        return self._shards.all_reduce(out)
 
     def _adjoint(self) -> JacobianLinearOperator:
         return JacobianLinearOperator(
@@ -104,4 +110,6 @@ class TransposedJacobianLinearOperator(EmpiricalRiskOperator):
             num_data=self._N_data,
             batch_size_fn=self._batch_size_fn,
             check_deterministic=False,
+            mesh=self._mesh,
+            data_axis=self._data_axis,
         )

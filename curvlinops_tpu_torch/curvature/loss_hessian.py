@@ -13,7 +13,16 @@ Where the JAX functions act on one datum and are ``vmap``-ed, these act on a
 batch ``[N, *datum]`` and return ``[N, V, *datum]``. Randomness comes from an
 explicit ``torch.Generator`` (the JAX package threads ``jax.random`` keys);
 the two give different draws from the same seed, so tests compare sample
-statistics, not samples.
+statistics, not samples. Every draw is a tensor with the batch axis
+leading (categorical samples by the exponential race ``argmax(p / E)``,
+``E ~ Exp(1)`` per class, as ``torch.multinomial`` draws one sample;
+Bernoulli samples by comparing a uniform with ``p``), so a process that
+holds a slice of the batch
+(:class:`~curvlinops_tpu_torch.parallel.mesh.ShardedGenerator`) draws for the whole
+batch and keeps its rows: its samples are the mesh-less operator's. The race
+is used rather than an inverse CDF: a float32 cumulative sum over GPT-2's
+50,304 classes drifts by about a class width, so logits that differ at
+roundoff (flash against einsum attention) would pick neighbouring classes.
 
 With ``reduction='mean'`` a datum's loss also averages over its non-class
 entries, contributing the constant ``c = 1/num_features``; the batch average
@@ -30,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from curvlinops_tpu_torch.losses import BCEWithLogitsLoss, CrossEntropyLoss, MSELoss
+from curvlinops_tpu_torch.parallel.mesh import ShardedGenerator
 
 
 class FisherType(str, Enum):
@@ -46,6 +56,22 @@ class KFACType(str, Enum):
 
     EXPAND = "expand"
     REDUCE = "reduce"
+
+
+def _exponential(shape: tuple, generator, dtype, device) -> torch.Tensor:
+    """Standard exponential draws (``torch.rand``'s signature)."""
+    return torch.empty(shape, dtype=dtype, device=device).exponential_(generator=generator)
+
+
+def _draw(fn: Callable, shape: tuple, generator, **kw) -> torch.Tensor:
+    """``fn(shape)`` (``torch.rand``, ``torch.randn``, :func:`_exponential`)
+    from ``generator``; a :class:`ShardedGenerator` draws the whole batch's
+    rows and keeps its slice."""
+    if not isinstance(generator, ShardedGenerator):
+        return fn(shape, generator=generator, **kw)
+    n, i = shape[0], generator.index
+    full = fn((n * generator.count, *shape[1:]), generator=generator.generator, **kw)
+    return full[i * n:(i + 1) * n]
 
 
 def mean_rescale(loss_fn, y: torch.Tensor):
@@ -123,7 +149,7 @@ def sample_grad_outputs(
     loss_fn,
     output: torch.Tensor,
     target: torch.Tensor,
-    generator: torch.Generator,
+    generator: torch.Generator | ShardedGenerator,
     num_samples: int,
 ) -> torch.Tensor:
     r"""Draw MC grad outputs with ``E[g g^T] = \nabla^2_f loss`` per datum.
@@ -135,24 +161,24 @@ def sample_grad_outputs(
     c = _feature_constant(loss_fn, shape)
     M = num_samples
 
+    kw = dict(dtype=output.dtype, device=output.device)
+
     if isinstance(loss_fn, MSELoss):
-        noise = torch.randn(
-            (N, M, *shape), generator=generator, dtype=output.dtype, device=output.device
-        )
-        return math.sqrt(2 * c) * noise
+        return math.sqrt(2 * c) * _draw(torch.randn, (N, M, *shape), generator, **kw)
 
     if isinstance(loss_fn, BCEWithLogitsLoss):
         p = torch.sigmoid(output)[:, None].expand(N, M, *shape)
-        draws = torch.bernoulli(p, generator=generator)
+        draws = (_draw(torch.rand, (N, M, *shape), generator, **kw) < p).to(output.dtype)
         return math.sqrt(c) * (p - draws)
 
     if isinstance(loss_fn, CrossEntropyLoss):
         C = shape[0]
         D = math.prod(shape) // C
         p = torch.softmax(output.reshape(N, C, D), dim=1).transpose(1, 2)  # [N, D, C]
-        draws = torch.multinomial(
-            p.reshape(N * D, C), M, replacement=True, generator=generator
-        ).reshape(N, D, M)
+        # the exponential race: argmax_c p_c / E_c is class c with probability
+        # p_c; a class of zero mass never wins
+        race = _draw(_exponential, (N, D, M, C), generator, **kw)
+        draws = race.reciprocal_().mul_(p[:, :, None, :]).argmax(-1)  # [N, D, M]
         onehot = F.one_hot(draws, C).to(output.dtype)  # [N, D, M, C]
         g = math.sqrt(c) * (p[:, :, None, :] - onehot)
         mask = (target != loss_fn.ignore_index).reshape(N, D)

@@ -25,6 +25,7 @@ from curvlinops_tpu_torch.kfac.randomized import (
     lr_apply_stacked,
 )
 from curvlinops_tpu_torch.ops.base import ChainLinearOperator, PytreeLinearOperator
+from curvlinops_tpu_torch.parallel.mesh import DataShards
 from curvlinops_tpu_torch.ops.blockdiag import BlockDiagonalLinearOperator
 from curvlinops_tpu_torch.ops.eigh import EighDecomposedLinearOperator
 from curvlinops_tpu_torch.ops.kronecker import (
@@ -43,9 +44,25 @@ from curvlinops_tpu_torch.ops.stacked import (
 from curvlinops_tpu_torch.utils.flatten import spec_of, zeros_like_spec
 
 
-def batched_eigh(mats: dict) -> dict:
+def _mesh_sharded_eigh(stacked: torch.Tensor, mesh, data_axis: str) -> tuple:
+    """``eigh`` of a ``[n, D, D]`` stack split over a mesh axis (one
+    ``eigh`` on this process with ``mesh=None``): the stack
+    is padded with identities to a multiple of the axis size, each process
+    decomposes its contiguous chunk, and the chunks are gathered to every
+    process with the pad dropped."""
+    D = stacked.shape[-1]
+    eye = torch.eye(D, dtype=stacked.dtype, device=stacked.device)[None]
+    return DataShards(mesh, data_axis).map_stack(torch.linalg.eigh, (stacked,), (eye,))
+
+
+def batched_eigh(mats: dict, mesh=None, data_axis: str = "data") -> dict:
     """Eigendecompose a dict of symmetric matrices, one batched call per shape
     (stacked ``[L, D, D]`` values decompose batched over the stack).
+
+    With ``mesh``, each shape's stack is split over the mesh's
+    ``data_axis`` (:func:`_mesh_sharded_eigh`): the independent
+    decompositions run on every process, and the results are replicated
+    (without a mesh, one ``eigh`` per shape on this process).
 
     Returns:
         ``{key: (eigenvalues, eigenvectors)}``.
@@ -54,8 +71,11 @@ def batched_eigh(mats: dict) -> dict:
     for k, m in mats.items():
         by_shape.setdefault((tuple(m.shape), m.dtype), []).append(k)
     out = {}
-    for keys in by_shape.values():
-        w, v = torch.linalg.eigh(torch.stack([mats[k] for k in keys]))
+    for (shape, _), keys in by_shape.items():
+        stacked = torch.stack([mats[k] for k in keys])
+        D = shape[-1]
+        w, v = _mesh_sharded_eigh(stacked.reshape(-1, D, D), mesh, data_axis)
+        w, v = w.reshape(*stacked.shape[:-1]), v.reshape(stacked.shape)
         for i, k in enumerate(keys):
             out[k] = (w[i], v[i])
     return out

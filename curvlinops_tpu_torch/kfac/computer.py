@@ -17,6 +17,13 @@ group with ``stack = L``: each slice is its own Kronecker block, computed
 from the call that applied it, and the factors are held batched as
 ``[L, d, d]``. An embedding group (``input_diag``) stores its input
 covariance as the diagonal vector of token counts ``[V]``.
+
+With ``mesh=`` every process computes the factors of its slice of each
+batch (the conv kernel and the flash kernels launched on that slice; the
+JAX package turns Pallas off under a mesh) and the accumulated factors are
+summed over the mesh's data axis once per build. The dataset statistics,
+the ``ignore_index`` rescale and the MC draws read the whole batch, so the
+factors equal the mesh-less build's up to the order of the sums.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from curvlinops_tpu_torch.kfac.kernels import (
     conv_input_covariance,
 )
 from curvlinops_tpu_torch.losses import SUPPORTED_LOSSES, CrossEntropyLoss
+from curvlinops_tpu_torch.parallel.mesh import DataShards, gather_params
 from curvlinops_tpu_torch.ops.base import close_by_norm
 from curvlinops_tpu_torch.risk import (
     _num_loss_terms_in_batch,
@@ -205,6 +213,8 @@ class KFACComputer:
     eligible float32 and bfloat16 conv input covariances through the Hopper
     kernel under EXPAND (REDUCE takes the averaged patches, float64 the
     plain path); ``"auto"`` means "iff the parameters are on a CUDA device".
+    ``mesh`` and ``data_axis`` split every batch over a mesh axis (see the
+    module docstring); ``DTensor`` parameters are gathered whole.
     """
 
     def __init__(
@@ -224,6 +234,8 @@ class KFACComputer:
         batch_size_fn: Callable | None = None,
         check_deterministic: bool = True,
         use_kernel: str | bool = "auto",
+        mesh=None,
+        data_axis: str = "data",
     ):
         if not isinstance(loss_fn, SUPPORTED_LOSSES):
             raise ValueError(
@@ -232,6 +244,10 @@ class KFACComputer:
         fisher_type = FisherType(fisher_type)
         if fisher_type != FisherType.MC and mc_samples != 1:
             raise ValueError(f"mc_samples={mc_samples} requires fisher_type=FisherType.MC.")
+        self.mesh, self.data_axis = mesh, data_axis
+        self._shards = DataShards(mesh, data_axis)
+        if mesh is not None:
+            params = gather_params(params)
         self.model, self.loss_fn, self.params = model, loss_fn, params
         self.data = data
         self.fisher_type, self.mc_samples = fisher_type, mc_samples
@@ -259,8 +275,9 @@ class KFACComputer:
         self.num_data = num_data
         self.num_per_example_loss_terms = num_per_example_loss_terms
 
-        X0, _ = next(iter(data))
-        self.groups = build_groups(self._get_traced(X0).layers, separate_weight_and_bias)
+        self.groups = build_groups(
+            self._get_traced(self.first_input()).layers, separate_weight_and_bias
+        )
         if any(g.input_diag for g in self.groups) and self.kfac_approx != KFACType.EXPAND:
             raise ValueError(
                 "Embedding layers support kfac_approx=KFACType.EXPAND only "
@@ -287,6 +304,24 @@ class KFACComputer:
                 "is outermost in memory); use KFACType.EXPAND KFAC, or keep the "
                 "batch axis leading."
             )
+
+    def first_input(self) -> Any:
+        """This process's slice of the first batch's input (the whole input
+        without a mesh)."""
+        X0, _ = next(iter(self.data))
+        return self._shards.shard(X0, self.device)
+
+    def batches(self):
+        """Yield ``(X, y, generator, correction)`` per batch: this process's
+        slice of the batch, the batch's generator (seen through the slice
+        under a mesh) and the loss correction of the slice with the whole
+        batch's ``ignore_index`` rescale (:func:`mean_rescale`)."""
+
+        def make(idx):
+            return batch_generator(self.seed, idx, self.device)
+
+        for _, y, Xs, ys, gen in self._shards.batches(self.data, self.device, make):
+            yield Xs, ys, gen, self._batch_correction(Xs) * mean_rescale(self.loss_fn, y)
 
     def _get_traced(self, X: torch.Tensor) -> TracedModel:
         key = (tuple(X.shape), X.dtype)
@@ -365,14 +400,12 @@ class KFACComputer:
         ]
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
 
-    def _layer_grads(self, pred, deltas, y, generator, correction) -> tuple[list, float]:
+    def _layer_grads(self, pred, deltas, y, generator) -> list:
         """Draw (or form) the grad outputs and run ONE batched backward over
         all ``V`` of them.
 
         Returns:
-            ``(grads, corr_eff)``: per layer call its output gradients
-            ``[V, B, *out]``, and the loss correction with the
-            ``ignore_index`` rescale applied.
+            Per layer call its output gradients ``[V, B, *out]``.
         """
         loss_fn = self.loss_fn
         rows = flatten_prediction(loss_fn, pred.detach())
@@ -381,8 +414,6 @@ class KFACComputer:
         G_rows = grad_output_fn(rows, y_rows, generator).movedim(1, 0)  # [V, L, C]
         if loss_fn.reduction == "mean":
             G_rows = G_rows / rows.shape[0]
-        # ignore_index: convert the static loss-term count to the masked one
-        corr_eff = correction * mean_rescale(loss_fn, y)
         G_pred = self._unflatten_rows(G_rows, tuple(pred.shape))
 
         def vjp(g_pred):
@@ -390,11 +421,11 @@ class KFACComputer:
             return [torch.zeros_like(d) if g is None else g for g, d in zip(grads, deltas)]
 
         if G_pred.shape[0] == 1:
-            return [g[None] for g in vjp(G_pred[0])], corr_eff
+            return [g[None] for g in vjp(G_pred[0])]
         # torch.func.vmap, not is_grads_batched: the latter's legacy batching
         # hands batched tensors to a custom Function's backward (flash
         # attention's kernels), bypassing its vmap rule
-        return torch.func.vmap(vjp)(G_pred), corr_eff
+        return torch.func.vmap(vjp)(G_pred)
 
     def _batch_factors(self, traced, X, y, generator, correction) -> tuple[dict, dict]:
         pred, inputs, deltas, gates = traced.apply_with_io(self.params, X)
@@ -423,10 +454,10 @@ class KFACComputer:
         if self.fisher_type == FisherType.FORWARD_ONLY:
             return aaT, {}  # identity ggT is attached after the data loop
 
-        grads, corr_eff = self._layer_grads(pred, deltas, y, generator, correction)
+        grads = self._layer_grads(pred, deltas, y, generator)
         ggT = {
             gi: self.stack_slices(group, [
-                kmath.gradient_covariance(self._group_grads(grads, uses), corr_eff)
+                kmath.gradient_covariance(self._group_grads(grads, uses), correction)
                 for uses in self.slices(group)
             ])
             for gi, group in enumerate(self.groups)
@@ -434,7 +465,8 @@ class KFACComputer:
         return aaT, ggT
 
     def _batch_correction(self, X) -> float:
-        """The loss correction of one batch (see :func:`kmath.loss_correction`)."""
+        """The loss correction of one batch (see :func:`kmath.loss_correction`);
+        the ``ignore_index`` rescale is applied by :meth:`batches`."""
         return kmath.loss_correction(
             self.batch_size_fn(X),
             self.num_per_example_loss_terms,
@@ -454,14 +486,12 @@ class KFACComputer:
 
         aaT_acc: dict = {}
         ggT_acc: dict = {}
-        for idx, (X, y) in enumerate(self.data):
-            aaT, ggT = self._batch_factors(
-                self._get_traced(X), X, y,
-                batch_generator(self.seed, idx, self.device), self._batch_correction(X),
-            )
+        for X, y, gen, correction in self.batches():
+            aaT, ggT = self._batch_factors(self._get_traced(X), X, y, gen, correction)
             for acc, new in ((aaT_acc, aaT), (ggT_acc, ggT)):
                 for gi, val in new.items():
                     acc[gi] = val if gi not in acc else acc[gi] + val
+        aaT_acc, ggT_acc = self._shards.all_reduce((aaT_acc, ggT_acc))
 
         if self.fisher_type == FisherType.FORWARD_ONLY:
             dtype = next(iter(self.params.values())).dtype
@@ -478,7 +508,9 @@ class KFACComputer:
         entries near zero differ from run to run by more than that; here each
         gradient is compared by norm, ``||g1 - g2|| <= 5e-5 ||g2|| + 1e-6``,
         which still catches non-deterministic data or models (shuffling,
-        dropout), whose differences are of the gradient's own size.
+        dropout), whose differences are of the gradient's own size. Under a
+        mesh each pass runs on this process's slices and the totals are
+        summed over the data axis before they are compared.
 
         Raises:
             RuntimeError: If the two passes disagree.
@@ -489,7 +521,7 @@ class KFACComputer:
         def one_pass():
             params = {n: p.detach().requires_grad_(True) for n, p in self.params.items()}
             total_loss, total_grad = None, None
-            for X, y in self.data:
+            for X, y, _, _ in self.batches():
                 loss = self.loss_fn(model_fn(params, X), y)
                 grad = (  # a parameter an untaken cond branch holds gets a zero gradient
                     torch.autograd.grad(loss, list(params.values()), allow_unused=True,
@@ -506,6 +538,7 @@ class KFACComputer:
         with torch.enable_grad():
             l1, g1 = one_pass()
             l2, g2 = one_pass()
+        l1, g1, l2, g2 = self._shards.all_reduce((l1, g1, l2, g2))
         if not torch.allclose(l1, l2, rtol=5e-5, atol=1e-6):
             raise RuntimeError("Check for deterministic total loss failed.")
         if not all(close_by_norm(a, b, 5e-5, 1e-6) for a, b in zip(g1, g2)):

@@ -16,6 +16,11 @@ and the correction pass accumulates the four sector sums of
 :func:`~curvlinops_tpu_torch.kfac.randomized.lr_sector_stats` instead of the
 full ``[D1, D2]`` grid.
 
+Under ``mesh=`` the eigendecompositions split each shape's stack over the
+mesh's data axis (:func:`~curvlinops_tpu_torch.kfac.chain.batched_eigh`,
+:func:`~curvlinops_tpu_torch.kfac.randomized.batched_randomized_eigh`), and
+the correction pass runs on each process's slices and is summed once.
+
 A scan-stacked group eigendecomposes its ``[L, d, d]`` factors batched and
 corrects slice by slice (``"seigh"`` blocks, ``"slreigh"`` at rank ``r``).
 An embedding group keeps the identity basis of its diagonal input factor
@@ -40,7 +45,6 @@ from curvlinops_tpu_torch.kfac.randomized import (
     lr_map_scales,
     lr_sector_stats,
 )
-from curvlinops_tpu_torch.risk import batch_generator
 
 
 class EKFACComputer(KFACComputer):
@@ -81,8 +85,7 @@ class EKFACComputer(KFACComputer):
             )
         self.require_batch_major("EKFAC's eigenvalue correction")
         # per-sample gradients need independent per-datum loss terms
-        X0, _ = next(iter(self.data))
-        pred_shape = self._get_traced(X0).output_shape
+        pred_shape = self._get_traced(self.first_input()).output_shape
         if len(pred_shape) != 2:
             raise ValueError(f"EKFAC supports 2d model output only, got shape {pred_shape}.")
         self._force_strategy = force_strategy
@@ -108,10 +111,11 @@ class EKFACComputer(KFACComputer):
                 if gi not in diag and max(dims) > self.rank:
                     lr_groups.add(gi)
         self.lr_groups = lr_groups
+        mesh = dict(mesh=self.mesh, data_axis=self.data_axis)
         eig_a = batched_eigh(
-            {gi: v for gi, v in aaT.items() if gi not in lr_groups and gi not in diag}
+            {gi: v for gi, v in aaT.items() if gi not in lr_groups and gi not in diag}, **mesh
         )
-        eig_g = batched_eigh({gi: v for gi, v in ggT.items() if gi not in lr_groups})
+        eig_g = batched_eigh({gi: v for gi, v in ggT.items() if gi not in lr_groups}, **mesh)
         Q_a = {gi: Q for gi, (_, Q) in eig_a.items()}
         Q_g = {gi: Q for gi, (_, Q) in eig_g.items()}
         if lr_groups:
@@ -122,7 +126,7 @@ class EKFACComputer(KFACComputer):
                 if gi in mats
             }
             reig = batched_randomized_eigh(
-                lr_mats, self.rank, self.rank_key, self.rank_power_iters
+                lr_mats, self.rank, self.rank_key, self.rank_power_iters, **mesh
             )
             for gi in lr_groups:  # partial bases only: the pass recomputes the spectra
                 if (gi, "a") in reig:
@@ -134,12 +138,9 @@ class EKFACComputer(KFACComputer):
         """Second data pass: per group the corrected eigenvalues (a tensor),
         or for a rank-``r`` group its four accumulated sector sums."""
         lambdas: dict = {}
-        for idx, (X, y) in enumerate(self.data):
+        for X, y, gen, corr_eff in self.batches():
             pred, inputs, deltas, _ = self._get_traced(X).apply_with_io(self.params, X)
-            grads, corr_eff = self._layer_grads(
-                pred, deltas, y, batch_generator(self.seed, idx, self.device),
-                self._batch_correction(X),
-            )
+            grads = self._layer_grads(pred, deltas, y, gen)
             for gi, group in enumerate(self.groups):
                 parts = [
                     self._slice_correction(inputs, grads, group, gi, uses, Q_a, Q_g, corr_eff, l)
@@ -151,7 +152,7 @@ class EKFACComputer(KFACComputer):
                     lam = tuple(map(torch.add, old, lam)) if isinstance(lam, tuple) else old + lam
                 lambdas[gi] = lam
             del pred, inputs, deltas, grads
-        return lambdas
+        return self._shards.all_reduce(lambdas)
 
     def _slice_correction(self, inputs, grads, group, gi, uses, Q_a, Q_g, corr_eff, l):
         """One Kronecker block's corrected eigenvalues from one batch (slice
@@ -193,7 +194,7 @@ class EKFACLinearOperator(KFACLinearOperator):
     def __init__(self, model: torch.nn.Module, loss_fn, params: dict, data, **kwargs):
         computer = EKFACComputer(model, loss_fn, params, data, **kwargs)
         Q_a, Q_g, lambdas, groups = computer.compute_ekfac()
-        self._params, self._groups = params, groups
+        self._params, self._groups = computer.params, groups
         self._Q_a, self._Q_g, self._lambdas = Q_a, Q_g, lambdas
         self._rebuild_chain()
         self._computer = computer
@@ -273,6 +274,6 @@ class EKFACLinearOperator(KFACLinearOperator):
         self = cls.__new__(cls)
         computer = EKFACComputer(model, loss_fn, params, data, **kwargs)
         self._computer = computer
-        self._params, self._groups = params, computer.groups
+        self._params, self._groups = computer.params, computer.groups
         self.load_state_dict(state)
         return self

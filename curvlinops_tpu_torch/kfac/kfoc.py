@@ -11,19 +11,21 @@ exact GGN block (the single-factor Frobenius optimum).
 The per-sample gradients ``P [V, N, d_out, d_in]`` are materialized, so a
 power step costs about ``2 N d_out d_in (d_in + d_out)`` flops per
 direction. Scope as in the reference: one batch, ``fisher_type`` type-2 or
-MC, EXPAND only.
+MC, EXPAND only. Under ``mesh=`` each process holds the per-sample
+gradients of its slice of the batch, every sum over samples in a power step
+is summed over the mesh's data axis, and each stopping rule reads the
+reduced (replicated) values, so every process stops on the same step.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
 from curvlinops_tpu_torch.curvature.loss_hessian import FisherType, KFACType
 from curvlinops_tpu_torch.kfac.computer import KFACComputer
 from curvlinops_tpu_torch.kfac.operator import KFACLinearOperator
-from curvlinops_tpu_torch.risk import batch_generator
 
 _STALL_LIMIT, _IMPROVEMENT = 100, 0.98  # stagnation: < 2% better over 100 steps
 
@@ -34,7 +36,10 @@ def _fro(X: torch.Tensor) -> torch.Tensor:
 
 
 def batched_top_rank_one_kron_factors(
-    P: torch.Tensor, num_iters: int = 2000, tol: float | None = None
+    P: torch.Tensor,
+    num_iters: int = 2000,
+    tol: float | None = None,
+    reduce: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """:func:`top_rank_one_kron_factors` for a stack of groups of one shape.
 
@@ -42,6 +47,8 @@ def batched_top_rank_one_kron_factors(
     stopping rule; a group that has stopped is masked out of the update, so
     its iterate, iteration count and residual stay what its own loop gives.
     The host reads one flag per step (whether any group is still running).
+    ``reduce`` sums each product over samples held elsewhere (the mesh's
+    data axis, when ``P`` holds one process's samples).
 
     Returns:
         ``(S_1 [G, d_out, d_out], S_2 [G, d_in, d_in], info)`` with per-group
@@ -52,12 +59,13 @@ def batched_top_rank_one_kron_factors(
     if tol is None:
         tol = 10 * torch.finfo(P.dtype).eps
     eps = torch.finfo(P.dtype).tiny
+    reduce = reduce or (lambda t: t)
 
     def R(M):  # [G, d_in, d_in] -> [G, d_out, d_out]: sum_x P_x M P_x^T
-        return torch.einsum("gxor,gxpr->gop", P @ M[:, None], P)
+        return reduce(torch.einsum("gxor,gxpr->gop", P @ M[:, None], P))
 
     def RT(U):  # [G, d_out, d_out] -> [G, d_in, d_in]: sum_x P_x^T U P_x
-        return torch.einsum("gxor,gxoc->grc", P, U[:, None] @ P)
+        return reduce(torch.einsum("gxor,gxoc->grc", P, U[:, None] @ P))
 
     def scale(X, s):
         return X / s.clamp(min=eps)[:, None, None]
@@ -166,12 +174,9 @@ class KFOCComputer(KFACComputer):
         Weight groups of one canonical shape run their power iterations
         together (:func:`batched_top_rank_one_kron_factors`).
         """
-        X, y = next(iter(self.data))
+        X, y, gen, corr_eff = next(self.batches())
         pred, inputs, deltas, _ = self._get_traced(X).apply_with_io(self.params, X)
-        grads, corr_eff = self._layer_grads(
-            pred, deltas, y, batch_generator(self.seed, 0, self.device),
-            self._batch_correction(X),
-        )
+        grads = self._layer_grads(pred, deltas, y, gen)
         del pred, deltas
         sqrt_corr = corr_eff**0.5
         first, second, infos = {}, {}, {}
@@ -181,7 +186,7 @@ class KFOCComputer(KFACComputer):
             if group.weight_path is None:
                 Pb = sqrt_corr * g.sum(dim=2)  # [V, N, d_out]
                 Pb = Pb.reshape(-1, Pb.shape[-1])
-                first[gi] = Pb.T @ Pb
+                first[gi] = self._shards.all_reduce(Pb.T @ Pb)
                 continue
             a = self._group_inputs(inputs, group, group.uses)  # [N, S, d_in]
             P = sqrt_corr * (g.transpose(-1, -2) @ a)  # [V, N, d_out, d_in]
@@ -189,7 +194,8 @@ class KFOCComputer(KFACComputer):
         del grads, inputs
         for members in by_shape.values():
             S_1, S_2, info = batched_top_rank_one_kron_factors(
-                torch.stack([P for _, P in members]), self.power_iters, self.power_tol
+                torch.stack([P for _, P in members]), self.power_iters, self.power_tol,
+                self._shards.all_reduce,
             )
             for i, (gi, _) in enumerate(members):
                 first[gi], second[gi] = S_1[i], S_2[i]
@@ -223,6 +229,8 @@ class KFOCLinearOperator(KFACLinearOperator):
         check_deterministic: bool = True,
         power_iters: int = 2000,
         power_tol: float | None = None,
+        mesh=None,
+        data_axis: str = "data",
     ):
         computer = KFOCComputer(
             model, loss_fn, params, data,
@@ -236,9 +244,11 @@ class KFOCLinearOperator(KFACLinearOperator):
             check_deterministic=check_deterministic,
             power_iters=power_iters,
             power_tol=power_tol,
+            mesh=mesh,
+            data_axis=data_axis,
         )
         aaT, ggT, groups = computer.compute_kfoc()
-        self._build_from_factors(params, groups, aaT, ggT)
+        self._build_from_factors(computer.params, groups, aaT, ggT)
         self._computer = computer
         #: per weight group: {"iterations", "residual", "sigma"}
         self.power_info = computer.power_info

@@ -152,7 +152,11 @@ class KFACLinearOperator(KroneckerChainOperator):
     ``fisher_type`` is one of type-2, mc, empirical and forward-only;
     ``kfac_approx`` is ``expand`` or ``reduce``. ``use_kernel`` routes
     eligible conv input covariances through the Hopper kernel under EXPAND
-    (``"auto"``: iff the parameters are on a CUDA device).
+    (``"auto"``: iff the parameters are on a CUDA device). ``mesh`` and
+    ``data_axis`` split the factor pass over a mesh axis
+    (:class:`~curvlinops_tpu_torch.kfac.computer.KFACComputer`), and the
+    exact-damped and rank-``r`` inverses split their eigendecompositions
+    over it.
     """
 
     SELF_ADJOINT = True
@@ -174,6 +178,8 @@ class KFACLinearOperator(KroneckerChainOperator):
         batch_size_fn: Callable | None = None,
         check_deterministic: bool = True,
         use_kernel: str | bool = "auto",
+        mesh=None,
+        data_axis: str = "data",
     ):
         computer = KFACComputer(
             model, loss_fn, params, data,
@@ -187,9 +193,11 @@ class KFACLinearOperator(KroneckerChainOperator):
             batch_size_fn=batch_size_fn,
             check_deterministic=check_deterministic,
             use_kernel=use_kernel,
+            mesh=mesh,
+            data_axis=data_axis,
         )
         aaT, ggT, groups = computer.compute()
-        self._build_from_factors(params, groups, aaT, ggT)
+        self._build_from_factors(computer.params, groups, aaT, ggT)
         self._computer = computer
 
     def _build_from_factors(self, params, groups, aaT, ggT) -> None:
@@ -293,9 +301,14 @@ class KFACLinearOperator(KroneckerChainOperator):
                 for fi, S in enumerate(fs):
                     flat[(gi, fi)] = S
                 struct.append((gi, kind, len(fs), "eig"))
-            eig = batched_eigh(flat)
+            computer = getattr(self, "_computer", None)
+            mesh = dict(
+                mesh=getattr(computer, "mesh", None),
+                data_axis=getattr(computer, "data_axis", "data"),
+            )
+            eig = batched_eigh(flat, **mesh)
             reig = (
-                batched_randomized_eigh(flat_rand, rank, rank_key, rank_power_iters)
+                batched_randomized_eigh(flat_rand, rank, rank_key, rank_power_iters, **mesh)
                 if flat_rand else {}
             )
             blocks_data = damped_eig_assembly(eig, reig, diag, damping, struct)
@@ -358,6 +371,6 @@ class KFACLinearOperator(KroneckerChainOperator):
         self = cls.__new__(cls)
         computer = KFACComputer(model, loss_fn, params, data, **kwargs)
         self._computer = computer
-        self._params, self._groups = params, computer.groups
+        self._params, self._groups = computer.params, computer.groups
         self.load_state_dict(state)
         return self

@@ -47,6 +47,7 @@ import math
 import torch
 
 from curvlinops_tpu_torch.ops.base import LinearOperator
+from curvlinops_tpu_torch.parallel.mesh import DataShards
 from curvlinops_tpu_torch.utils.flatten import TensorSpec
 from curvlinops_tpu_torch.utils.misc import full_float32_matmul
 
@@ -134,6 +135,7 @@ def batched_randomized_eigh(
     generator: torch.Generator | None = None,
     power_iters: int = 1,
     mesh=None,
+    data_axis: str = "data",
 ) -> dict:
     """Randomized eigendecomposition of a dict of PSD ``[..., D, D]`` matrices.
 
@@ -145,14 +147,21 @@ def batched_randomized_eigh(
     decomposition is complete either way). Results keep the values' leading
     stack axes.
 
+    With ``mesh``, each shape's range finding is split over the mesh's
+    ``data_axis``: the test matrices are drawn for the whole stack on every
+    process from the same generator, so the mesh does not change them; the
+    stack is padded to a multiple of the axis size with identities whose
+    test matrices are zero, each process runs its contiguous chunk, and the
+    results are gathered with the pad dropped. The core and full ``eigh``s
+    split the same way (:func:`~curvlinops_tpu_torch.kfac.chain.batched_eigh`).
+
     Returns:
         ``{key: (lam, U, tail)}`` as :func:`randomized_eigh`.
-
-    Raises:
-        NotImplementedError: For ``mesh`` (data parallelism is not ported).
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh= (data-parallel builds) is not ported yet.")
+    from curvlinops_tpu_torch.kfac.chain import _mesh_sharded_eigh
+
+    shards = DataShards(mesh, data_axis)
+
     generator = default_generator(generator)
     by_shape: dict = {}
     for k, m in mats.items():
@@ -163,16 +172,20 @@ def batched_randomized_eigh(
         D = shape[-1]
         stacked = torch.cat([mats[k].reshape(-1, D, D) for k in keys])
         if D <= rank:
-            lam, U = torch.linalg.eigh(stacked)
+            lam, U = _mesh_sharded_eigh(stacked, mesh, data_axis)
             _scatter_back(out, mats, keys, lam, U, stacked.new_zeros(stacked.shape[0]))
             continue
         omega = gaussian((stacked.shape[0], D, rank), generator, stacked)
-        Q, core, tr = _range_core(stacked, omega, power_iters)
+        pads = (torch.eye(D, dtype=stacked.dtype, device=stacked.device)[None],
+                omega.new_zeros((1, D, rank)))
+        Q, core, tr = shards.map_stack(
+            lambda S, W: _range_core(S, W, power_iters), (stacked, omega), pads
+        )
         cores.append(core)
         metas.append((keys, Q, tr, D))
     if not cores:
         return out
-    w_all, V_all = torch.linalg.eigh(torch.cat(cores))
+    w_all, V_all = _mesh_sharded_eigh(torch.cat(cores), mesh, data_axis)
     w_all = w_all.clamp(min=0.0)  # PSD clamp, as in randomized_eigh
     lead = 0
     for keys, Q, tr, D in metas:

@@ -28,7 +28,15 @@ Differences from the JAX package:
   linearization as a traced graph whose primal values are evaluated once
   (:mod:`curvlinops_tpu_torch.curvature.held`), where the JAX package holds
   ``jax.linearize``'s residuals.
-- No ``mesh=``/``data_axis=`` (data parallelism).
+- With ``mesh=`` every process builds the operator from the same full
+  batches and computes on its slice of each batch
+  (:class:`~curvlinops_tpu_torch.parallel.mesh.DataShards`), where GSPMD
+  partitions the JAX package's programs. The dataset statistics and each
+  batch's normalisation read the whole batch, the MC draws are the whole
+  batch's (:class:`~curvlinops_tpu_torch.parallel.mesh.ShardedGenerator`),
+  each product is summed over the mesh's data axis once, after the batch
+  loop, and the determinism probes decide on reduced values, so that every
+  process takes the same branch.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from torch.utils import _pytree as pytree
 
 from curvlinops_tpu_torch.losses import CrossEntropyLoss, Loss
 from curvlinops_tpu_torch.ops.base import LinearOperator, close_by_norm
+from curvlinops_tpu_torch.parallel.mesh import DataShards, gather_params
 from curvlinops_tpu_torch.utils.flatten import spec_of, tree_add
 from curvlinops_tpu_torch.utils.misc import as_model_fn
 
@@ -104,14 +113,19 @@ class EmpiricalRiskOperator(LinearOperator):
             double-matvec determinism probes at construction.
         seed: Base seed of operators that sample (MC Fisher); each batch's
             generator is :func:`batch_generator` of it and the batch index.
-        mesh, data_axis: Not ported (data parallelism); must be ``None``.
+        mesh: Optional ``DeviceMesh`` (:func:`~curvlinops_tpu_torch.parallel.make_mesh`)
+            for data-parallel execution: every process passes the same
+            arguments, computes on its slice of each batch and gets the
+            replicated result. ``DTensor`` parameters are gathered whole.
+        data_axis: Mesh axis name to split the batches over.
         progressbar: Show a tqdm progress bar over batches.
         max_vmap_columns: Bound on the columns of a matmat mapped at once.
 
     Raises:
-        NotImplementedError: If ``mesh`` or ``data_axis`` is given.
-        ValueError: If ``model`` is not callable or ``loss_fn`` has no
-            ``'mean'``/``'sum'`` reduction.
+        ValueError: If ``model`` is not callable, ``loss_fn`` has no
+            ``'mean'``/``'sum'`` reduction, or ``mesh`` has no ``data_axis``;
+            under a mesh, from a product, if a batch does not divide over
+            the data axis.
     """
 
     SELF_ADJOINT: bool = False
@@ -132,22 +146,22 @@ class EmpiricalRiskOperator(LinearOperator):
         check_deterministic: bool = True,
         seed: int = 2147483647,
         mesh=None,
-        data_axis: str | None = None,
+        data_axis: str = "data",
         progressbar: bool = False,
         max_vmap_columns: int | None = None,
         in_spec: Any = None,
         out_spec: Any = None,
     ):
-        if mesh is not None or data_axis is not None:
-            raise NotImplementedError(
-                "mesh= and data_axis= (data-parallel operators) are not ported yet."
-            )
         if loss_fn is not None and getattr(loss_fn, "reduction", None) not in ("mean", "sum"):
             raise ValueError(
                 "loss_fn must expose a `reduction` attribute equal to 'mean' "
                 f"or 'sum' (got {getattr(loss_fn, 'reduction', None)!r}); "
                 "use the losses in curvlinops_tpu_torch.losses."
             )
+        self._mesh, self._data_axis = mesh, data_axis
+        self._shards = DataShards(mesh, data_axis)
+        if mesh is not None:
+            params = gather_params(params)
         self._model_fn = as_model_fn(model)
         self._loss_fn = loss_fn
         self._params = pytree.tree_map(lambda t: t.detach(), params)
@@ -234,6 +248,44 @@ class EmpiricalRiskOperator(LinearOperator):
             self._loss_fn.reduction
         ]
 
+    def _slice_factor(self, X: Any, y: Any, ys: Any) -> Any:
+        """The normalization factor of this process's slice (targets ``ys``)
+        of a batch ``(X, y)``: :meth:`_get_normalization_factor` of the
+        whole batch, which is the factor without a mesh.
+
+        A mean-reduced loss on a slice averages over the slice's loss terms,
+        so the whole batch's factor is scaled by the slice's share of the
+        batch's terms: its share of the rows, or for cross-entropy its share
+        of the targets that are not ``ignore_index`` (the mean's
+        denominator, which differs between slices).
+        """
+        c = self._get_normalization_factor(X, y)
+        if self._mesh is None or self._loss_fn is None or self._loss_fn.reduction == "sum":
+            return c
+        if isinstance(self._loss_fn, CrossEntropyLoss):
+            ignore = self._loss_fn.ignore_index
+            share = (ys != ignore).sum() / (y != ignore).sum().clamp(min=1).to(ys.device)
+            return c * share.to(self.dtype)
+        return c / self._shards.count
+
+    def _shard_loop(self, desc: str | None = None):
+        """Yield ``(X, y, c, generator)`` per batch: this process's slice of
+        the batch (the whole batch without a mesh), its normalization factor
+        (:meth:`_slice_factor`) and, for operators that sample, the batch's
+        generator (seen through the slice under a mesh).
+
+        Raises:
+            ValueError: If a leading dimension does not divide over the
+                mesh's data axis.
+        """
+        make = None
+        if self.USES_RANDOMNESS:
+            make = lambda idx: batch_generator(self._seed, idx, self.device)  # noqa: E731
+        for X, y, Xs, ys, gen in self._shards.batches(
+            self._loop_over_data(desc=desc), self.device, make
+        ):
+            yield Xs, ys, self._slice_factor(X, y, ys), gen
+
     def linearized(self, remat=None) -> LinearOperator:
         """Hold the per-batch model linearizations on the device.
 
@@ -270,15 +322,12 @@ class EmpiricalRiskOperator(LinearOperator):
         if self._batch_matmat_fn is None:
             self._batch_matmat_fn = self._make_batch_matmat()
         AM = None
-        for idx, (X, y) in enumerate(self._loop_over_data(desc="matmat")):
-            gen = batch_generator(self._seed, idx, self.device) if self.USES_RANDOMNESS else None
-            out = self._batch_matmat_fn(
-                self._params, X, y, M, self._get_normalization_factor(X, y), gen
-            )
+        for X, y, c, gen in self._shard_loop(desc="matmat"):
+            out = self._batch_matmat_fn(self._params, X, y, M, c, gen)
             AM = out if AM is None else tree_add(AM, out)
         if AM is None:
             raise ValueError("Empty dataset: no batches to accumulate over.")
-        return AM
+        return self._shards.all_reduce(AM)
 
     # ---- gradient and loss over the dataset ----------------------------- #
     @torch.no_grad()
@@ -292,14 +341,13 @@ class EmpiricalRiskOperator(LinearOperator):
             raise ValueError("No loss function specified.")
         model_fn, loss_fn = self._model_fn, self._loss_fn
         total_loss, total_grad = None, None
-        for X, y in self._loop_over_data(desc="gradient_and_loss"):
-            c = self._get_normalization_factor(X, y)
+        for X, y, c, _ in self._shard_loop(desc="gradient_and_loss"):
             grad, loss = torch.func.grad_and_value(
                 lambda p: c * loss_fn(model_fn(p, X), y)
             )(self._params)
             total_loss = loss if total_loss is None else total_loss + loss
             total_grad = grad if total_grad is None else tree_add(total_grad, grad)
-        return total_grad, total_loss
+        return self._shards.all_reduce((total_grad, total_loss))
 
     # ---- determinism rails ---------------------------------------------- #
     def _batch_pred_loss_grad(self):
@@ -309,15 +357,16 @@ class EmpiricalRiskOperator(LinearOperator):
         pass, which gives the class count, and before the loss.
         """
         model_fn, loss_fn = self._model_fn, self._loss_fn
-        for X, y in self._loop_over_data(desc="check_deterministic"):
+        batches = self._loop_over_data(desc="check_deterministic")
+        for X_full, y_full, X, y, _ in self._shards.batches(batches, self.device):
+            c = self._slice_factor(X_full, y_full, y)
             if loss_fn is None:
                 with torch.no_grad():
                     pred = model_fn(self._params, X)
                 yield (X, y), pred, None, None
                 continue
             pred, vjp_fn = torch.func.vjp(lambda p: model_fn(p, X), self._params)
-            self._validate_targets(pred, y)
-            c = self._get_normalization_factor(X, y)
+            self._validate_targets(pred, y_full)  # the whole batch: every process alike
             grad_pred, loss = torch.func.grad_and_value(lambda q: c * loss_fn(q, y))(pred)
             yield (X, y), pred, loss, vjp_fn(grad_pred)[0]
 
@@ -345,26 +394,38 @@ class EmpiricalRiskOperator(LinearOperator):
         """Two independent data passes must agree: total loss entrywise,
         total gradient by norm, and each batch when ``FIXED_DATA_ORDER``.
 
+        Under a mesh the totals are compared after their sum over the data
+        axis, and a batch that fails on one process fails on all of them.
+
         Raises:
             RuntimeError: On any detected non-determinism.
         """
         has_loss = self._loss_fn is not None
         tl1 = tl2 = tg1 = tg2 = None
+        failure = None
         for (b1, pred1, loss1, grad1), (b2, pred2, loss2, grad2) in zip(
             self._batch_pred_loss_grad(), self._batch_pred_loss_grad()
         ):
-            if self.FIXED_DATA_ORDER:
-                self._check_deterministic_batch(
-                    b1, b2, pred1, pred2, loss1, loss2, grad1, grad2, rtol, atol
-                )
+            if self.FIXED_DATA_ORDER and failure is None:
+                try:
+                    self._check_deterministic_batch(
+                        b1, b2, pred1, pred2, loss1, loss2, grad1, grad2, rtol, atol
+                    )
+                except RuntimeError as err:
+                    failure = err
             if has_loss:
                 tl1 = loss1 if tl1 is None else tl1 + loss1
                 tl2 = loss2 if tl2 is None else tl2 + loss2
                 tg1 = grad1 if tg1 is None else tree_add(tg1, grad1)
                 tg2 = grad2 if tg2 is None else tree_add(tg2, grad2)
+        if self._shards.any(failure is not None) and failure is None:
+            failure = RuntimeError("Check for deterministic batch failed on another process.")
+        if failure is not None:
+            raise failure
         if has_loss:
             if tl1 is None:
                 raise RuntimeError("Empty dataset in determinism check.")
+            tl1, tl2, tg1, tg2 = self._shards.all_reduce((tl1, tl2, tg1, tg2))
             if not torch.allclose(tl1, tl2, rtol=rtol, atol=atol):
                 raise RuntimeError("Check for deterministic total loss failed.")
             if not _tree_close(tg1, tg2, rtol, atol):

@@ -1,6 +1,7 @@
 """Library utilities: tree flattening and tree arithmetic, column mapping,
-and the model-function adapter (:mod:`curvlinops_tpu_torch.utils.misc`); the
-CUDA kernel build helper is :mod:`curvlinops_tpu_torch.utils.cuda_build`."""
+the model-function adapter (:mod:`curvlinops_tpu_torch.utils.misc`) and the
+device-prefetching data pipeline (:mod:`curvlinops_tpu_torch.utils.prefetch`);
+the CUDA kernel build helper is :mod:`curvlinops_tpu_torch.utils.cuda_build`."""
 
 from curvlinops_tpu_torch.utils.flatten import (
     TensorSpec,
@@ -16,6 +17,7 @@ from curvlinops_tpu_torch.utils.flatten import (
     zeros_like_spec,
 )
 from curvlinops_tpu_torch.utils.misc import as_model_fn
+from curvlinops_tpu_torch.utils.prefetch import PrefetchToDevice, prefetch_to_device
 
 __all__ = [
     "TensorSpec",
@@ -30,4 +32,6 @@ __all__ = [
     "ravel_tree",
     "vmap_columns",
     "as_model_fn",
+    "PrefetchToDevice",
+    "prefetch_to_device",
 ]

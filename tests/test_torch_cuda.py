@@ -17,7 +17,9 @@ through SDPA's pinned backend under forward mode; the collector's
 function-level uses: bias-only KFAC against the full KFAC's bias blocks and
 an MLP in HuggingFace's ``Conv1D`` layout against its ``nn.Linear`` form,
 each on the card against the CPU, and the flash GPT with ``Conv1D`` layers,
-whose ``addmm`` taps feed the flash kernels' factor pass.
+whose ``addmm`` taps feed the flash kernels' factor pass; data parallelism
+(a one-process NCCL mesh, and a two-process one on two cards) and the
+prefetching pipeline's pinned copies on a side stream.
 
 These tests need the card: they skip without one. The card's machine has no
 JAX, so this file imports only the port, and runs there without the suite's
@@ -964,3 +966,73 @@ def test_fuzz_first_chunk_on_card(cuda, family):
     }[family]
     built, refused = fc.run_chunk(build, range(n), atol, cuda, torch.float64)
     assert built >= n // 3, (built, refused)
+
+
+# ---------------------------------------------------------------------- #
+# data parallelism and the prefetching pipeline on the card
+# ---------------------------------------------------------------------- #
+@pytest.mark.cuda
+def test_prefetch_lands_on_the_card(cuda):
+    """32 host batches of 8 MiB through ``PrefetchToDevice(size=2)``: each
+    arrives on ``cuda:0`` equal to its source, read on the consumer's stream."""
+    from curvlinops_tpu_torch import PrefetchToDevice
+
+    gen = torch.Generator().manual_seed(0)
+    sources = [torch.randn(2 * 1024 * 1024, generator=gen) for _ in range(32)]
+    got = 0
+    for (x,), src in zip(PrefetchToDevice([(s,) for s in sources], size=2, device=cuda), sources):
+        assert x.device == cuda and torch.equal((x * 2.0).cpu(), src * 2.0)
+        got += 1
+    assert got == 32
+
+
+@pytest.mark.cuda
+def test_one_process_nccl_mesh_matches_meshless(cuda):
+    """``make_mesh()`` in one process: an NCCL group of one; the narrow
+    ResNet's float64 GGN matvec with the mesh equals the one without."""
+    import torch.distributed as dist
+
+    from curvlinops_tpu_torch.parallel import make_mesh
+
+    ours = not dist.is_initialized()
+    try:
+        mesh = make_mesh()
+        assert "nccl" in str(dist.get_backend())
+        p = tresnet.narrow_resnet_problem(device=cuda)
+        gen = torch.Generator().manual_seed(0)
+        v = {n: torch.randn(t.shape, generator=gen, dtype=t.dtype).to(cuda)
+             for n, t in p.params.items()}
+        out = [GGNLinearOperator(p.model, p.loss_fn, p.params, p.data, mesh=m) @ v
+               for m in (None, mesh)]
+        flat = [torch.cat([t.reshape(-1) for t in o.values()]) for o in out]
+        assert rel_err(flat[1], flat[0]) < 1e-12
+    finally:
+        if ours and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_two_process_nccl_mesh_matches_meshless(cuda, tmp_path):
+    """Two processes, one card each (``tests/torch_parallel_worker.py``'s
+    NCCL world): the narrow ResNet's GGN matvec split over the mesh equals
+    the mesh-less one."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(root), os.environ.get("PYTHONPATH", "")])}
+    procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_parallel_worker", str(tmp_path),
+                               str(r), "2", "nccl"], cwd=root, env=env) for r in range(2)]
+    try:
+        codes = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert codes == [0, 0]
+    res = torch.load(tmp_path / "results.pt", weights_only=False)
+    assert "nccl" in res["backend"] and res["rel_err"] < 1e-12

@@ -313,5 +313,6 @@ def test_rank_inverse_refusals(mlp_rank_case, kwargs, error, match):
 
 
 def test_batched_randomized_eigh_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="mesh="):
+    # a mesh without the data axis; real meshes are in tests/test_torch_parallel.py
+    with pytest.raises(ValueError, match="no axis 'data'"):
         trand.batched_randomized_eigh({0: torch.eye(3)}, 2, mesh=object())

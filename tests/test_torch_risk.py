@@ -203,10 +203,10 @@ def test_out_of_range_targets_raise_before_the_loss(bad, batch, mlp_ce):
 def test_unported_and_invalid_arguments_raise(mlp_ce):
     t = mlp_ce["torch"]
     args = (t["model"], t["loss_fn"], t["params"], t["data"])
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh is a DeviceMesh with the data axis (tests/test_torch_parallel.py)
+    with pytest.raises(ValueError, match="no axis 'data'"):
         GGNLinearOperator(*args, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        GGNLinearOperator(*args, data_axis="data")
+    GGNLinearOperator(*args, data_axis="data")  # the default axis, unused without a mesh
     with pytest.raises(ValueError, match="reduction"):
         GGNLinearOperator(t["model"], lambda f, y: f.sum(), t["params"], t["data"])
     with pytest.raises(ValueError, match="callable"):
