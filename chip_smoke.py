@@ -190,10 +190,10 @@ def rel_err(a, b) -> float:
     return float((a.double() - b.double()).norm() / b.double().norm())
 
 
-def event_times(fn, torch, reps: int = 20) -> list[float]:
+def event_times(fn, torch, reps: int = 20, warmups: int = 3) -> list[float]:
     """Device times of ``fn`` in ms, from CUDA events around each of ``reps``
-    calls after 3 warm-up calls."""
-    for _ in range(3):
+    calls after ``warmups`` warm-up calls."""
+    for _ in range(warmups):
         fn()
     times = []
     for _ in range(reps):
@@ -228,16 +228,18 @@ def alternated_ms(plain, kernel, torch) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def device_profile(torch, label: str, fn) -> float:
-    """One warm run of ``fn`` under ``torch.profiler``: wall and device ms,
+def device_profile(torch, label: str, fn, top: int = 8, warm: bool = True) -> float:
+    """One warm run of ``fn`` (after one unprofiled run unless ``warm`` is
+    False: the caller ran it) under ``torch.profiler``: wall and device ms,
     busy share (device over wall; the profiler inflates wall time, not
-    device time), the largest device items by name and the port's kernels.
-    Returns the busy share."""
+    device time), the ``top`` largest device items by name and the port's
+    kernels. Returns the busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t_start = time.perf_counter()
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -261,7 +263,7 @@ def device_profile(torch, label: str, fn) -> float:
     )
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     for rank, (name, (ms, n)) in enumerate(ranked):
-        if rank < 8 or any(k in name for k in PORT_KERNELS):
+        if rank < top or any(k in name for k in PORT_KERNELS):
             print(f"    {ms:.3f} ms x{n} {name[:110]}")
     return device_ms / wall_ms
 
@@ -369,17 +371,20 @@ def main() -> None:
     marks.append(time.perf_counter())
     parallel_launches = parallel_phases(torch, dev, smi)
     marks.append(time.perf_counter())
+    fused_launches = fused_phases(torch, dev, smi)
+    marks.append(time.perf_counter())
     for entry in entries:
         entry["launches"] += phase_launches[entry["name"]]
         entry["launches"] += stacked_launches.get(entry["name"], 0)
         entry["launches"] += collector_launches.get(entry["name"], 0)
         entry["launches"] += cond_launches.get(entry["name"], 0)
         entry["launches"] += parallel_launches.get(entry["name"], 0)
+        entry["launches"] += fused_launches.get(entry["name"], 0)
     print("phase seconds: ResNet-18 kernel and KFAC {:.1f}, GPT kernels and KFAC {:.1f}, "
           "curvature operators {:.1f}, solvers {:.1f}, KFAC family {:.1f}, estimators, "
           "GGN diagonal and held linearizations {:.1f}, transformer family {:.1f}, "
           "collector (bias-only, Conv1D layout) {:.1f}, cond-gated GPT and fuzz twins "
-          "{:.1f}, data parallelism and prefetch {:.1f}".format(
+          "{:.1f}, data parallelism and prefetch {:.1f}, captured programs {:.1f}".format(
               *(b - a for a, b in zip(marks, marks[1:]))))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
@@ -1763,7 +1768,14 @@ MC_REL_TOL = 0.2  # ResNet-18's MC diagonal (1 sample a datum, B=512) against th
 SLQ_IDENTITY_TOL = 1e-5  # SLQ with f = identity against Hutchinson on the same probes
 HELD_TOL = 1e-5  # held against base matvec, relative (float32)
 HELD_CG_TOL = 1e-4  # CG residual histories, held against base, relative, over CG_REPRO's prefix
-CG_REPRO = 1e-5  # the prefix of CG iterations where two runs of the base agree to this
+CG_REPRO = 1e-5  # the prefix of CG iterations where the base's rounding-level references
+# (a second run, and CG_JITTERED runs with jittered products) agree with it to this
+CG_JITTER = 2**-21  # relative normal noise on each entry of each jittered product: 4.8e-7,
+# about the held GGN's matvec against the base's (4.2e-7 to 5.0e-7 on an H100). A second
+# run of a base that replays one CUDA graph may repeat it bit for bit (its histories then
+# agreed to 1e-5 over all 20 iterations while the held one's drifted 1.4e-4 off by the
+# last), so that run alone need not show where CG turns chaotic
+CG_JITTERED = 2  # jittered runs, each with its own seed
 CG_MIN_PREFIX = 12  # and that prefix must be at least this long (float32 CG turns chaotic
 # after about 17 iterations on ResNet-18's GGN + 0.1 I: on an H100 two runs of the base,
 # which differ by cuDNN's atomics, stayed within 2e-6 of each other up to there, then
@@ -1806,6 +1818,30 @@ def kfac_damped_logdet(torch, kfac, delta_rel: float) -> tuple[float, float, flo
     delta = delta_rel * max(float(s.max()) for s in spectra)
     logdet = sum(float(torch.log(s + delta).sum()) for s in spectra)
     return delta, logdet, sum(float(s.sum()) for s in spectra)
+
+
+def jittered_operator_class():
+    """``Jittered(A, seed)``: ``A``'s products with each entry scaled by
+    ``1 + CG_JITTER * z``, a fresh standard normal ``z`` from a generator
+    on ``A``'s device seeded with ``seed``; a reference for rounding-level
+    differences that does not depend on the card's own nondeterminism."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from curvlinops_tpu_torch.ops.base import LinearOperator
+
+    class Jittered(LinearOperator):
+        def __init__(self, A, seed: int):
+            super().__init__(A.in_spec, A.out_spec)
+            self._A, self.SELF_ADJOINT = A, A.SELF_ADJOINT
+            self._gen = torch.Generator(device=A.device).manual_seed(seed)
+
+        def _matmat(self, M):
+            return pytree.tree_map(lambda t: t * (1 + CG_JITTER * torch.randn(
+                t.shape, generator=self._gen, device=t.device, dtype=t.dtype)),
+                self._A._matmat(M))
+
+    return Jittered
 
 
 def estimator_phases(torch, dev, smi: str) -> dict:
@@ -1972,6 +2008,7 @@ def estimator_phases(torch, dev, smi: str) -> dict:
     torch.cuda.empty_cache()
 
     # ---- 3. held linearizations on ResNet-18 -------------------------- #
+    Jittered = jittered_operator_class()
     args = (problem.model, problem.loss_fn, problem.params, problem.data)
     calls = [0]
     hooks = [m.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
@@ -2010,7 +2047,8 @@ def estimator_phases(torch, dev, smi: str) -> dict:
         if label == "GGN":
             b = probe(base, 2)
             runs = {}
-            for which, op in (("held", held), ("base", base), ("base again", base)):
+            jittered = [(f"base jittered {s}", Jittered(base, s)) for s in range(CG_JITTERED)]
+            for which, op in (("held", held), ("base", base), ("base again", base), *jittered):
                 inv = CGInverseLinearOperator(op + lam * IdentityLinearOperator(op.in_spec),
                                               maxiter=SOLVER_ITERS, tol=0.0, atol=0.0)
                 _, solve_ms = timed(torch, lambda: inv @ b)
@@ -2022,19 +2060,25 @@ def estimator_phases(torch, dev, smi: str) -> dict:
                 return ((runs[a][0] - runs[b][0]).abs() / runs[b][0]).tolist()
 
             held_drift, base_drift = drift("held", "base"), drift("base again", "base")
-            prefix = next((i for i, d in enumerate(base_drift) if d > CG_REPRO), len(base_drift))
+            jitter_drift = [drift(which, "base") for which, _ in jittered]
+            prefix = next((i for i, ds in enumerate(zip(base_drift, *jitter_drift))
+                           if max(ds) > CG_REPRO), len(base_drift))
             worst = max(held_drift[:prefix], default=math.inf)
             est_report(f"CG on held GGN + {lam} I, ResNet-18", iterations=SOLVER_ITERS,
                        held_ms_per_iteration=runs["held"][1],
                        base_ms_per_iteration=runs["base"][1],
                        reproducible_prefix=prefix, held_vs_base_on_prefix=worst, tol=HELD_CG_TOL,
                        held_vs_base_all=max(held_drift), base_vs_base_all=max(base_drift),
+                       jittered_vs_base_all=[max(d) for d in jitter_drift], jitter=CG_JITTER,
                        held_vs_base=held_drift, base_vs_base=base_drift,
+                       jittered_vs_base=jitter_drift,
                        held_residuals=runs["held"][0].tolist(), card=smi)
             if not (prefix >= CG_MIN_PREFIX and worst <= HELD_CG_TOL):
                 raise RuntimeError(f"CG on the held GGN: residual histories differ by {worst} "
                                    f"(tol {HELD_CG_TOL}) over the first {prefix} iterations, "
-                                   f"where the base reproduces itself to {CG_REPRO} (at least "
+                                   f"where a second run of the base and {CG_JITTERED} runs "
+                                   f"with its products jittered by {CG_JITTER} agree with it "
+                                   f"to {CG_REPRO} (at least "
                                    f"{CG_MIN_PREFIX} required)")
         del base, held
     for h in hooks:
@@ -2947,14 +2991,15 @@ def mesh_phases(torch, dev, smi: str, mesh) -> dict:
     ggn = {m: GGNLinearOperator(*full, mc_samples=1, check_deterministic=False, mesh=m)
            for m in (None, mesh)}
     err = rel_err(flat(ggn[mesh] @ v), flat(ggn[None] @ v))
+    modes = {str(m is not None): A._batch_fn_cache["fused_state"][0] for m, A in ggn.items()}
     times = {m: event_times(lambda A=A: A @ v, torch, reps=10) for m, A in ggn.items()}
     med = {m: statistics.median(t) for m, t in times.items()}
     par_report("GGN (MC) matvec, mesh vs mesh-less, ResNet-18", batch=BATCH,
                rel_err=err, tol=MESH_MATVEC_TOL, mesh_ms=med[mesh], meshless_ms=med[None],
                mesh_ms_range=[min(times[mesh]), max(times[mesh])],
                meshless_ms_range=[min(times[None]), max(times[None])],
-               overhead=med[mesh] / med[None] - 1.0, card=smi)
-    if not err <= MESH_MATVEC_TOL:
+               overhead=med[mesh] / med[None] - 1.0, fused_modes=modes, card=smi)
+    if modes != {"True": "single", "False": "single"} or not err <= MESH_MATVEC_TOL:
         raise RuntimeError(f"mesh GGN matvec: {err} (tol {MESH_MATVEC_TOL})")
     (g_mesh, l_mesh), g_ms = timed(torch, ggn[mesh].gradient_and_loss)
     (g_one, l_one), g1_ms = timed(torch, ggn[None].gradient_and_loss)
@@ -3041,6 +3086,7 @@ def mesh_phases(torch, dev, smi: str, mesh) -> dict:
     for name, data in sources.items():
         A = GGNLinearOperator(problem.model, problem.loss_fn, problem.params, data,
                               check_deterministic=False)
+        A.fuse_batches = False  # the copies stream with the batches
         out[name] = flat(A @ v)
         t = event_times(lambda A=A: A @ v, torch, reps=10)
         med[name] = (statistics.median(t), min(t), max(t))
@@ -3079,6 +3125,255 @@ def mesh_phases(torch, dev, smi: str, mesh) -> dict:
     del builds, gpt
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------- #
+# captured programs: the fused loop, Neumann and Lanczos as CUDA graphs
+# ---------------------------------------------------------------------- #
+# fused against streamed, and a fused call against an earlier one, relative:
+# cuDNN's weight-gradient atomics move two runs by 5e-7 to 2.4e-6, and a
+# wrong MC draw would miss by order 1
+FUSED_TOL = 1e-5
+# ResNet-18's 512 images as one resident batch, 8 uniform and 8 ragged ones
+FUSED_SPLITS = {"single": [512], "scan": [64] * 8, "unroll": [64] * 6 + [80, 48]}
+FUSED_REPS = 10
+FUSED_TERMS = 16  # the Neumann series over G + 0.1 I
+FUSED_LANCZOS = 16  # fast Lanczos steps on the GGN
+FUSED_SERIES_TOL = 1e-4  # Neumann result and Ritz values, captured against eager (float32)
+FUSED_GPT_SPLIT = 2  # GPT-2 small's 4 sequences as batches of this many
+
+
+def fu_report(item: str, **fields) -> None:
+    """One JSON line of the captured-program phase."""
+    print(json.dumps({"fused_phase": item, **fields}))
+
+
+def fused_vector(torch, out) -> "torch.Tensor":
+    """A matvec's dict, or a ``(gradient dict, loss)`` pair, as one float64
+    vector."""
+    if isinstance(out, dict):
+        return flat(out)
+    return torch.cat([flat(out[0]), out[1].reshape(1).double()])
+
+
+def captured_programs(A) -> list:
+    """The captured programs cached on operator ``A``."""
+    from curvlinops_tpu_torch.utils.graphs import CapturedProgram
+
+    return [p for p in A._program_cache[1].values() if isinstance(p, CapturedProgram)]
+
+
+def replay_kernel_counts(torch, fn) -> dict:
+    """Launches of each port kernel in one call of ``fn`` (a replay), traced
+    by ``torch.profiler`` in its active step after one warm-up step (a
+    profile's first step missed 2 of a replay's 24 forward kernels once on
+    the H100)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    names: list = []
+
+    def ready(prof):
+        names[:] = [e.name() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA]
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1), on_trace_ready=ready) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return {k: sum(k in n for n in names) for k in PORT_KERNELS if any(k in n for n in names)}
+
+
+def peak_gib(torch, fn) -> float:
+    """The device memory allocated at the peak of one call of ``fn``, GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def fused_item(torch, label: str, mode: str, fused, streamed, call, smi: str) -> dict:
+    """``call(fused)`` (its first call warms up, captures and replays)
+    against ``call(streamed)`` over the same resident batches: both timed by
+    CUDA events (median of ``FUSED_REPS``), the capture's time and pool, the
+    peak allocated memory of one call each (the fused batches and taped
+    samples are held throughout), the taped samples' bytes, one profiled
+    call each.
+    Gates: fused within ``FUSED_TOL`` of streamed, a later fused call within
+    ``FUSED_TOL`` of the first, the first result unchanged by later calls."""
+    out, first_ms = timed(torch, lambda: call(fused))
+    first = fused_vector(torch, out).clone()
+    (program,) = captured_programs(fused)
+    err = rel_err(first, fused_vector(torch, call(streamed)))
+    t_f = event_times(lambda: call(fused), torch, reps=FUSED_REPS, warmups=0)
+    t_s = event_times(lambda: call(streamed), torch, reps=FUSED_REPS, warmups=0)
+    repeat = rel_err(fused_vector(torch, call(fused)), first)
+    unchanged = bool(torch.equal(fused_vector(torch, out), first))
+    busy_f = device_profile(torch, f"{label}, {mode}, fused", lambda: call(fused), top=0,
+                            warm=False)
+    busy_s = device_profile(torch, f"{label}, {mode}, streamed", lambda: call(streamed), top=0,
+                            warm=False)
+    peaks = [peak_gib(torch, lambda: call(A)) for A in (fused, streamed)]
+    tapes = [t for t in fused._batch_fn_cache["fused_state"][3] if t is not None]
+    before, after = program.reserved_bytes
+    row = dict(
+        mode=fused._batch_fn_cache["fused_state"][0], rel_err=err, repeat_rel_err=repeat,
+        earlier_result_unchanged=unchanged, tol=FUSED_TOL,
+        fused_ms=statistics.median(t_f), fused_ms_range=[min(t_f), max(t_f)],
+        streamed_ms=statistics.median(t_s), streamed_ms_range=[min(t_s), max(t_s)],
+        first_call_ms=first_ms, capture_ms=program.capture_seconds * 1e3,
+        pool_gib=(after - before) / 2**30, reserved_gib=[before / 2**30, after / 2**30],
+        peak_gib_fused=peaks[0], peak_gib_streamed=peaks[1],
+        tape_bytes=sum(t.nbytes for t in tapes) if tapes else None,
+        busy_fused=busy_f, busy_streamed=busy_s, card=smi,
+    )
+    fu_report(label, **row)
+    if row["mode"] != mode or not (err <= FUSED_TOL and repeat <= FUSED_TOL and unchanged):
+        raise RuntimeError(f"fused {label} ({mode}): {row}")
+    return row
+
+
+def fused_phases(torch, dev, smi: str) -> dict:
+    """Captured programs (A12), float32, TF32 off, every gate fatal.
+
+    ResNet-18 on synthetic CIFAR-10 (seed 0): its 512 images as one resident
+    batch (``"single"``), 8 batches of 64 (``"scan"``) and 64 x 6 + 80 + 48
+    (``"unroll"``); for each, the exact GGN, MC GGN (one sample), Hessian and
+    EF matvecs and ``gradient_and_loss`` fused against ``fuse_batches =
+    False`` over the same batches (:func:`fused_item`). On the one-batch GGN:
+    16 steps of ``fast_lanczos`` (Ritz values) and a 16-term Neumann series
+    over ``G + 0.1 I`` (scale ``1 / (lambda_max + 0.1)``), each one captured
+    program running the GGN inline, against the eager recurrence and series
+    over the streamed GGN. The unrolled flash GPT-2 small (B=4 as 2 batches
+    of 2, T=1024): ``gradient_and_loss`` fused against streamed, a profiled
+    replay listing each flash kernel once per layer and batch; the einsum
+    GPT's exact and MC GGN matvecs over the same batches (the flash GPT has
+    no forward mode). The eager runs go through the public entries over the
+    streamed GGN, which is not capturable: the Neumann series and fast
+    Lanczos run eagerly there and keep no program. Returns the flash
+    kernels' host launches (warm-up and capture; a replay launches without
+    the host)."""
+    from curvlinops_tpu_torch import (
+        EFLinearOperator,
+        GGNLinearOperator,
+        HessianLinearOperator,
+        IdentityLinearOperator,
+        NeumannInverseLinearOperator,
+    )
+    from curvlinops_tpu_torch.models import flash_attention as fa
+    from curvlinops_tpu_torch.models import gpt as tgpt
+    from curvlinops_tpu_torch.models.resnet import cifar10_resnet18
+    from curvlinops_tpu_torch.solvers import lanczos as tl
+
+    problem = cifar10_resnet18(batch_size=BATCH, seed=0, device=dev)
+    model, loss_fn, params = problem.model, problem.loss_fn, problem.params
+    X, y = problem.data[0]
+    gen = torch.Generator(dev).manual_seed(7)
+    v = {n: torch.randn(t.shape, generator=gen, device=dev) for n, t in params.items()}
+    operators = {"GGN": (GGNLinearOperator, {}), "MC GGN": (GGNLinearOperator, {"mc_samples": 1}),
+                 "Hessian": (HessianLinearOperator, {}), "EF": (EFLinearOperator, {})}
+    for mode, sizes in FUSED_SPLITS.items():
+        data = list(zip(X.split(sizes), y.split(sizes)))
+        items = [(f"{label} matvec, ResNet-18", cls, kw, lambda A: A @ v)
+                 for label, (cls, kw) in operators.items()]
+        items.append(("gradient_and_loss, ResNet-18", GGNLinearOperator, {},
+                      lambda A: A.gradient_and_loss()))
+        for label, cls, kw, call in items:
+            fused, streamed = (cls(model, loss_fn, params, data, check_deterministic=False, **kw)
+                               for _ in range(2))
+            streamed.fuse_batches = False
+            fused_item(torch, label, mode, fused, streamed, call, smi)
+            if mode == "single" and label.startswith("GGN"):
+                ggn = (fused, streamed)
+            del fused, streamed
+            torch.cuda.empty_cache()
+
+    # ---- fast Lanczos and Neumann over the one-batch GGN, inline ---------- #
+    G, G_s = ggn
+    v0 = torch.randn(G.shape[1], generator=gen, device=dev)
+    (ritz, _), lanczos_ms = timed(torch, lambda: tl.fast_lanczos(G, FUSED_LANCZOS, v0=v0))
+    (program,) = [p for p in captured_programs(G) if p.name.startswith("Lanczos")]
+    replay_ms = statistics.median(event_times(
+        lambda: tl.fast_lanczos(G, FUSED_LANCZOS, v0=v0), torch, reps=3, warmups=0))
+
+    # the streamed GGN is not capturable: fast_lanczos runs it eagerly
+    (ritz_e, _), eager_ms = timed(torch, lambda: tl.fast_lanczos(G_s, FUSED_LANCZOS, v0=v0))
+    l_err = rel_err(ritz, ritz_e)
+    if "_program_cache" in G_s.__dict__:
+        raise RuntimeError("fast_lanczos captured a program over the streamed GGN")
+    fu_report("fast_lanczos, 16 steps, GGN ResNet-18 (one batch)", rel_err=l_err,
+              tol=FUSED_SERIES_TOL, top_ritz=float(ritz[-1]), first_call_ms=lanczos_ms,
+              captured_ms=replay_ms, eager_ms=eager_ms, capture_ms=program.capture_seconds * 1e3,
+              pool_gib=(program.reserved_bytes[1] - program.reserved_bytes[0]) / 2**30, card=smi)
+    if not l_err <= FUSED_SERIES_TOL:
+        raise RuntimeError(f"captured fast Lanczos against eager: {l_err}")
+    scale = 1.0 / (float(ritz[-1]) + SOLVER_DAMPING)
+    inv = {name: NeumannInverseLinearOperator(
+        A + SOLVER_DAMPING * IdentityLinearOperator(A.in_spec), num_terms=FUSED_TERMS, scale=scale)
+        for name, A in (("fused", G), ("eager", G_s))}
+    x, first_ms = timed(torch, lambda: inv["fused"] @ v)
+    (program,) = captured_programs(inv["fused"])
+    captured_ms = statistics.median(event_times(lambda: inv["fused"] @ v, torch, reps=3,
+                                                warmups=0))
+    x_e, eager_ms = timed(torch, lambda: inv["eager"] @ v)  # eager: G_s streams
+    n_err = rel_err(flat(x), flat(x_e))
+    if "_program_cache" in inv["eager"].__dict__:
+        raise RuntimeError("the Neumann series captured a program over the streamed GGN")
+    busy = device_profile(torch, "Neumann series, 16 terms, captured", lambda: inv["fused"] @ v,
+                          top=0, warm=False)
+    fu_report("Neumann series, 16 terms, G + 0.1 I, ResNet-18 (one batch)", rel_err=n_err,
+              tol=FUSED_SERIES_TOL, scale=scale, first_call_ms=first_ms, captured_ms=captured_ms,
+              eager_ms=eager_ms, capture_ms=program.capture_seconds * 1e3,
+              pool_gib=(program.reserved_bytes[1] - program.reserved_bytes[0]) / 2**30,
+              busy_captured=busy, card=smi)
+    if not (n_err <= FUSED_SERIES_TOL and finite_tree(x)):
+        raise RuntimeError(f"captured Neumann series against eager: {n_err}")
+    del ggn, G, G_s, inv, program, problem, model, params, X, y, v, x, x_e
+    torch.cuda.empty_cache()
+
+    # ---- GPT-2 small: the flash gradient, the einsum GGN ----------------- #
+    config = GPT_CONFIG or tgpt.GPTConfig()
+    L = config.n_layer
+    for n in fa.launches:
+        fa.launches[n] = 0
+    for impl in ("flash", "einsum"):
+        gpt = tgpt.shakespeare_nanogpt(GPT_BATCH, config, seed=0, device=dev, attention_impl=impl)
+        Xg, yg = gpt.data[0]  # yg: the sequences' targets, flat
+        data = [(Xb, yb.reshape(-1)) for Xb, yb in zip(
+            Xg.split(FUSED_GPT_SPLIT), yg.reshape(Xg.shape[0], -1).split(FUSED_GPT_SPLIT))]
+        fused, streamed = (GGNLinearOperator(gpt.model, gpt.loss_fn, gpt.params, data,
+                                             check_deterministic=False) for _ in range(2))
+        streamed.fuse_batches = False
+        if impl == "flash":
+            fused_item(torch, "gradient_and_loss, flash GPT-2 small", "scan", fused, streamed,
+                       lambda A: A.gradient_and_loss(), smi)
+            counts = replay_kernel_counts(torch, fused.gradient_and_loss)
+            expected = {k: L * len(data) for k in
+                        ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")}
+            fu_report("profiled replay of the flash GPT's gradient", kernels=counts,
+                      expected=expected, card=smi)
+            if counts != expected:
+                raise RuntimeError(f"the profiled replay's flash kernels: {counts}")
+        else:
+            vg = {n: torch.randn(t.shape, generator=gen, device=dev)
+                  for n, t in gpt.params.items()}
+            fused_item(torch, "GGN matvec, einsum GPT-2 small", "scan", fused, streamed,
+                       lambda A: A @ vg, smi)
+            del fused, streamed
+            torch.cuda.empty_cache()
+            # the MC GGN (one sample): the taped samples are class indices
+            fused, streamed = (GGNLinearOperator(gpt.model, gpt.loss_fn, gpt.params, data,
+                                                 check_deterministic=False, mc_samples=1)
+                               for _ in range(2))
+            streamed.fuse_batches = False
+            fused_item(torch, "MC GGN matvec, einsum GPT-2 small", "scan", fused, streamed,
+                       lambda A: A @ vg, smi)
+        del gpt, fused, streamed, data, Xg, yg
+        torch.cuda.empty_cache()
+    return {f"flash_attention_{n}": c for n, c in fa.launches.items()}
 
 
 if __name__ == "__main__":

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 
 from curvlinops_tpu_torch.losses import BCEWithLogitsLoss, CrossEntropyLoss, MSELoss
 from curvlinops_tpu_torch.parallel.mesh import ShardedGenerator
+from curvlinops_tpu_torch.utils.graphs import DrawTape
 
 
 class FisherType(str, Enum):
@@ -72,6 +73,15 @@ def _draw(fn: Callable, shape: tuple, generator, **kw) -> torch.Tensor:
     n, i = shape[0], generator.index
     full = fn((n * generator.count, *shape[1:]), generator=generator.generator, **kw)
     return full[i * n:(i + 1) * n]
+
+
+def _sample(make: Callable, shape: tuple, generator) -> torch.Tensor:
+    """``make(generator)``, a sample of ``shape``; a :class:`DrawTape` makes
+    it from its generator once and replays it (the caller must not write to
+    it)."""
+    if isinstance(generator, DrawTape):
+        return generator.draw(make, shape)
+    return make(generator)
 
 
 def mean_rescale(loss_fn, y: torch.Tensor):
@@ -164,21 +174,28 @@ def sample_grad_outputs(
     kw = dict(dtype=output.dtype, device=output.device)
 
     if isinstance(loss_fn, MSELoss):
-        return math.sqrt(2 * c) * _draw(torch.randn, (N, M, *shape), generator, **kw)
+        noise = _sample(lambda gen: _draw(torch.randn, (N, M, *shape), gen, **kw),
+                        (N, M, *shape), generator)
+        return math.sqrt(2 * c) * noise
 
     if isinstance(loss_fn, BCEWithLogitsLoss):
         p = torch.sigmoid(output)[:, None].expand(N, M, *shape)
-        draws = (_draw(torch.rand, (N, M, *shape), generator, **kw) < p).to(output.dtype)
-        return math.sqrt(c) * (p - draws)
+        hits = _sample(lambda gen: _draw(torch.rand, (N, M, *shape), gen, **kw) < p,
+                       (N, M, *shape), generator)
+        return math.sqrt(c) * (p - hits.to(output.dtype))
 
     if isinstance(loss_fn, CrossEntropyLoss):
         C = shape[0]
         D = math.prod(shape) // C
         p = torch.softmax(output.reshape(N, C, D), dim=1).transpose(1, 2)  # [N, D, C]
         # the exponential race: argmax_c p_c / E_c is class c with probability
-        # p_c; a class of zero mass never wins
-        race = _draw(_exponential, (N, D, M, C), generator, **kw)
-        draws = race.reciprocal_().mul_(p[:, :, None, :]).argmax(-1)  # [N, D, M]
+        # p_c; a class of zero mass never wins. A tape keeps the winners
+        # [N, D, M], not the race [N, D, M, C]
+        draws = _sample(
+            lambda gen: _draw(_exponential, (N, D, M, C), gen, **kw)
+            .reciprocal_().mul_(p[:, :, None, :]).argmax(-1),
+            (N, D, M), generator,
+        )
         onehot = F.one_hot(draws, C).to(output.dtype)  # [N, D, M, C]
         g = math.sqrt(c) * (p[:, :, None, :] - onehot)
         mask = (target != loss_fn.ignore_index).reshape(N, D)

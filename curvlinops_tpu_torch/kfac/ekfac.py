@@ -254,7 +254,8 @@ class EKFACLinearOperator(KFACLinearOperator):
         }
 
     def load_state_dict(self, state: dict) -> None:
-        """Restore eigenbases and eigenvalues and rebuild the chain."""
+        """Restore eigenbases and eigenvalues and rebuild the chain (drops the
+        cached programs)."""
         self._Q_a = {int(k): v for k, v in state["Q_a"].items()}
         self._Q_g = {int(k): v for k, v in state["Q_g"].items()}
         self._lambdas = {
@@ -262,6 +263,7 @@ class EKFACLinearOperator(KFACLinearOperator):
             for k, v in state["lambdas"].items()
         }
         self._rebuild_chain()
+        self.invalidate_traced()
 
     @classmethod
     def from_state_dict(

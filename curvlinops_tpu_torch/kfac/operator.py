@@ -353,10 +353,11 @@ class KFACLinearOperator(KroneckerChainOperator):
         }
 
     def load_state_dict(self, state: dict) -> None:
-        """Restore factors and rebuild the chain."""
+        """Restore factors and rebuild the chain (drops the cached programs)."""
         aaT = {int(k): v for k, v in state["aaT"].items()}
         ggT = {int(k): v for k, v in state["ggT"].items()}
         self._build_from_factors(self._params, self._groups, aaT, ggT)
+        self.invalidate_traced()
 
     @classmethod
     def from_state_dict(

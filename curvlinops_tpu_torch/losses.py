@@ -53,6 +53,11 @@ class CrossEntropyLoss(Loss):
         if logits.ndim > 2:
             logits = logits.movedim(1, -1).reshape(-1, logits.shape[1])
             target = target.reshape(-1)
+        if target.shape != logits.shape[:1]:  # gather would read the first rows only
+            raise ValueError(
+                f"Cross-entropy targets of shape {tuple(target.shape)} for "
+                f"{logits.shape[0]} rows of logits."
+            )
         mask = target != self.ignore_index
         safe_t = torch.where(mask, target, torch.zeros_like(target)).long()
         nll = -F.log_softmax(logits, dim=-1).gather(-1, safe_t[:, None])[:, 0]

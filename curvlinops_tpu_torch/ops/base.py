@@ -8,17 +8,25 @@ Operator algebra (``+``, ``-``, scalar ``*``/``/``, ``@``-chaining,
 adjoint, negation) is lazy, and composing operators over structurally
 different spaces is refused.
 
-The JAX package's ``traced()``, ``cached_program`` and ``FrozenModelFn``
-exist to hoist large constants out of XLA programs and to cache compiled
-programs. PyTorch runs eagerly and has nothing to hoist or compile, so here
-``traced()`` returns the operator's own ``_matmat`` with no constants,
-``invalidate_traced()`` does nothing and ``cached_program`` calls its
-``build`` function every time. ``FrozenModelFn`` has no counterpart: a module keeps its
-frozen tensors itself.
+Programs are cached on the operator, as in the JAX package:
+:func:`cached_program` keeps each built program (a
+:class:`~curvlinops_tpu_torch.utils.graphs.CapturedProgram`, the counterpart
+of a jitted XLA program: the fused multi-batch loop, the Neumann series, the
+Lanczos recurrences) under its key for the current epoch, and
+:meth:`LinearOperator.invalidate_traced` bumps a global epoch and drops every
+cached program, which frees their CUDA graphs' memory pools. Nothing is
+hoisted: a graph reads the operator's tensors where they lie, so
+``traced()`` returns the operator's own ``_matmat`` with no constants, and
+``FrozenModelFn`` has no counterpart (a module keeps its frozen tensors
+itself). A program over an operator captures the operator's products inline
+only where :attr:`LinearOperator.capturable` says they can be captured (a
+fused curvature operator without a mesh, dense and diagonal operators and
+their sums, multiples and chains); over any other it runs eagerly.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -44,10 +52,45 @@ def close_by_norm(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float) ->
     return a.shape == b.shape and bool((a - b).norm() <= rtol * b.norm() + atol)
 
 
+# epoch of the cached programs (see LinearOperator.invalidate_traced), and
+# the operators holding programs of the current epoch
+_TRACED_EPOCH = [0]
+_HOLDERS: "weakref.WeakSet[LinearOperator]" = weakref.WeakSet()
+
+
+def traced_epoch() -> int:
+    """The current global epoch of the cached programs."""
+    return _TRACED_EPOCH[0]
+
+
 def cached_program(A, key: tuple, build: Callable):
-    """No-op counterpart of the JAX program cache: returns ``build()``."""
-    del A, key
-    return build()
+    """The program stored on operator ``A`` under ``key``, built once with
+    ``build()``.
+
+    The cache holds the current epoch's programs only
+    (``A._program_cache == (epoch, {key: program})``); anything but a
+    :class:`LinearOperator` has no cache and gets ``build()`` every time.
+    """
+    if not isinstance(A, LinearOperator):
+        return build()
+    epoch = traced_epoch()
+    stored = A.__dict__.get("_program_cache")
+    if stored is None or stored[0] != epoch:
+        stored = A._program_cache = (epoch, {})
+        _HOLDERS.add(A)
+    cache = stored[1]
+    if key not in cache:
+        cache[key] = build()
+    return cache[key]
+
+
+def program_pool(A, device: torch.device):
+    """The CUDA-graph memory pool that ``A``'s programs share (``None`` off
+    the card): they replay one at a time and their outputs are cloned at
+    once, so one pool serves all of them."""
+    if device.type != "cuda":
+        return None
+    return cached_program(A, ("graph_pool", device), torch.cuda.graph_pool_handle)
 
 
 _FMT_TREE = "tree"  # tree matching the spec, no column axis
@@ -67,6 +110,11 @@ class LinearOperator:
     """
 
     SELF_ADJOINT: bool = False
+    # whether another program (a Neumann series, a Lanczos recurrence) may
+    # capture this operator's products inline: they read nothing to the host,
+    # copy nothing from pageable memory and launch no collective. Only the
+    # operators known to be are marked; a program over any other runs eagerly
+    capturable: bool = False
 
     # make numpy defer `ndarray @ op` to __rmatmul__
     __array_ufunc__ = None
@@ -325,14 +373,24 @@ class LinearOperator:
                 "the operator to the same vector differ."
             )
 
-    # ---- counterparts of the JAX package's program caching ------------- #
+    # ---- program caching ------------------------------------------------ #
     def traced(self, ncols: int = 1) -> tuple[Callable, tuple]:
         """``(fn, ())`` with ``fn(M) == self._matmat(M)``; nothing to hoist."""
         del ncols
         return self._matmat, ()
 
     def invalidate_traced(self) -> None:
-        """No-op: an eager operator has no cached program to drop."""
+        """Drop every cached program (call after mutating operator state).
+
+        Bumps a global epoch and clears the program cache of every operator:
+        a composite's program runs its children's computation, and children
+        hold no parent links, so a child's mutation must reach every cached
+        program. Dropping a captured program frees its graph's memory pool.
+        """
+        _TRACED_EPOCH[0] += 1
+        for holder in list(_HOLDERS):
+            holder.__dict__.pop("_program_cache", None)
+        _HOLDERS.clear()
 
 
 class PytreeLinearOperator(LinearOperator):
@@ -400,6 +458,10 @@ class SumLinearOperator(LinearOperator):
         self._A, self._B = A, B
         self.SELF_ADJOINT = A.SELF_ADJOINT and B.SELF_ADJOINT
 
+    @property
+    def capturable(self) -> bool:  # noqa: D102
+        return self._A.capturable and self._B.capturable
+
     def _matmat(self, M: Any) -> Any:
         return tree_add(self._A._matmat(M), self._B._matmat(M))
 
@@ -414,6 +476,10 @@ class ScaledLinearOperator(LinearOperator):
         super().__init__(A.in_spec, A.out_spec)
         self._A, self._scalar = A, scalar
         self.SELF_ADJOINT = A.SELF_ADJOINT and not isinstance(scalar, complex)
+
+    @property
+    def capturable(self) -> bool:  # noqa: D102
+        return self._A.capturable
 
     def _matmat(self, M: Any) -> Any:
         return tree_scale(self._scalar, self._A._matmat(M))
@@ -447,6 +513,10 @@ class ChainLinearOperator(LinearOperator):
     def __len__(self) -> int:  # noqa: D105
         return len(self.ops)
 
+    @property
+    def capturable(self) -> bool:  # noqa: D102
+        return all(op.capturable for op in self.ops)
+
     def __getitem__(self, idx: int) -> LinearOperator:  # noqa: D105
         return self.ops[idx]
 
@@ -460,6 +530,7 @@ class ChainLinearOperator(LinearOperator):
         _check_same_space(op.in_spec, old.in_spec, "chain[i] = op (input)")
         _check_same_space(op.out_spec, old.out_spec, "chain[i] = op (output)")
         self.ops[idx] = op
+        self.invalidate_traced()
 
     def _matmat(self, M: Any) -> Any:
         for op in reversed(self.ops):

@@ -24,6 +24,8 @@ class MatrixLinearOperator(LinearOperator):
     ``SELF_ADJOINT`` is False; set it on the instance for a symmetric ``A``.
     """
 
+    capturable = True
+
     def __init__(self, A):
         A = torch.as_tensor(A)
         if A.ndim != 2:
@@ -45,6 +47,7 @@ class IdentityLinearOperator(LinearOperator):
     """Identity on an arbitrary tree space."""
 
     SELF_ADJOINT = True
+    capturable = True
 
     def __init__(self, spec: Any):
         super().__init__(spec)
@@ -57,6 +60,7 @@ class OuterProductLinearOperator(LinearOperator):
     """Low-rank operator ``c * U U^T`` for ``U`` of shape ``[N, R]``."""
 
     SELF_ADJOINT = True
+    capturable = True
 
     def __init__(self, U, c: float = 1.0):
         U = torch.as_tensor(U)

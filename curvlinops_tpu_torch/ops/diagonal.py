@@ -21,6 +21,7 @@ class DiagonalLinearOperator(LinearOperator):
     """Operator ``diag(d)`` where ``d`` is a tree of tensors matching the space."""
 
     SELF_ADJOINT = True
+    capturable = True
 
     def __init__(self, diagonal: Any):
         """Store the diagonal as a tree of tensors."""

@@ -1,13 +1,16 @@
 """Inverse linear operators: CG, MINRES, LSMR and truncated Neumann series.
 
 PyTorch counterpart of ``curvlinops_tpu/ops/inverse.py``. The iterations
-run on the device (:mod:`curvlinops_tpu_torch.solvers`), each as a Python
-loop that applies the operator's ``_matmat`` once per step, where the JAX
-package compiles the whole solve into one XLA program. The Krylov loops
-read one host scalar per iteration (their stopping test); the Neumann
-series reads none until its end, where it checks its divergence flag once.
-``set_*_hyperparameters`` changes the next solve; there is no compiled
-program to drop.
+run on the device (:mod:`curvlinops_tpu_torch.solvers`). The Krylov solves
+(CG, MINRES, LSMR) are Python loops that apply the operator's ``_matmat``
+once per step and read one host scalar per iteration (their stopping
+test), where the JAX package compiles each solve into one XLA program. The
+Neumann series reads nothing until its end: the whole series runs as one
+cached :class:`~curvlinops_tpu_torch.utils.graphs.CapturedProgram` per
+number of columns and dtype (the JAX package's ``fori_loop`` program), and
+its divergence flag is read once, after the replay.
+``set_*_hyperparameters`` changes the next solve and drops the cached
+programs (:meth:`~curvlinops_tpu_torch.ops.base.LinearOperator.invalidate_traced`).
 
 Example:
     >>> import torch
@@ -23,23 +26,27 @@ Example:
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import torch
+from torch.utils import _pytree as pytree
 
-from curvlinops_tpu_torch.ops.base import LinearOperator
+from curvlinops_tpu_torch.ops.base import LinearOperator, cached_program, program_pool
 from curvlinops_tpu_torch.solvers.cg import batched_cg, flatten_columns, on_flat
 from curvlinops_tpu_torch.solvers.lsmr import batched_lsmr
 from curvlinops_tpu_torch.solvers.minres import batched_minres
+from curvlinops_tpu_torch.utils.graphs import CapturedProgram
 
 
 def _set(op: LinearOperator, names: tuple, kwargs: dict, solver: str) -> None:
-    """Set the named hyperparameters ``op._<name>``; refuse unknown names."""
+    """Set the named hyperparameters ``op._<name>`` and drop the cached
+    programs; refuse unknown names."""
     for name in names:
         if name in kwargs:
             setattr(op, f"_{name}", kwargs.pop(name))
     if kwargs:
         raise ValueError(f"Unknown {solver} hyperparameters: {sorted(kwargs)}.")
+    op.invalidate_traced()
 
 
 def _require_square(A: LinearOperator) -> None:
@@ -187,7 +194,11 @@ class NeumannInverseLinearOperator(LinearOperator):
 
     A diverging series produces NaNs: a device-side flag records the first
     term with one, and the apply raises ``ValueError`` after the loop (the
-    loop itself reads nothing to the host).
+    loop itself reads nothing to the host). Where ``A`` and ``P`` are
+    ``capturable``, the series runs as one cached captured program per number
+    of columns and dtype, with ``scale`` and ``num_terms`` built in
+    (:meth:`set_neumann_hyperparameters` drops it); over any other operator
+    (a streamed or mesh curvature operator, a solver) it runs eagerly.
     """
 
     def __init__(
@@ -210,35 +221,60 @@ class NeumannInverseLinearOperator(LinearOperator):
     def set_neumann_hyperparameters(
         self, num_terms: int | None = None, scale: float | None = None
     ) -> None:
-        """Update the truncation length and the rescaling."""
+        """Update the truncation length and the rescaling (drops the cached
+        programs)."""
         if num_terms is not None:
             self._num_terms = num_terms
         if scale is not None:
             self._scale = scale
+        self.invalidate_traced()
+
+    def _series(self) -> Callable:
+        """The series as a function ``M -> (scale * sum_k term_k, flag,
+        first_bad)``, holding the operators and hyperparameters, not
+        ``self``."""
+        A_mm, scale = self._A._matmat, self._scale
+        P_mm = self._preconditioner._matmat if self._preconditioner is not None else None
+        num_terms, check_nan = self._num_terms, self._check_nan
+
+        def series(M: Any) -> tuple[Any, torch.Tensor, torch.Tensor]:
+            m, ravel, unravel = flatten_columns(M)
+            A = on_flat(A_mm, ravel, unravel)
+            apply_P = on_flat(P_mm, ravel, unravel) if P_mm is not None else (lambda V: V)
+            term = result = apply_P(m)  # the k = 0 term, P M
+            flag = torch.zeros((), dtype=torch.bool, device=m.device)
+            first_bad = torch.full((), -1, dtype=torch.int64, device=m.device)
+            for k in range(1, num_terms + 1):
+                term = term - scale * apply_P(A(term))
+                if check_nan:
+                    isnan = torch.isnan(term).any()
+                    first_bad = first_bad.masked_fill(~flag & isnan, k)
+                    flag = flag | isnan
+                result = result + term
+            return unravel(scale * result), flag, first_bad
+
+        return series
 
     def _matmat(self, M: Any) -> Any:
-        m, ravel, unravel = flatten_columns(M)
-        A = on_flat(self._A._matmat, ravel, unravel)
         P = self._preconditioner
-        apply_P = on_flat(P._matmat, ravel, unravel) if P is not None else (lambda V: V)
-        scale = self._scale
-
-        term = result = apply_P(m)  # the k = 0 term, P M
-        flag = torch.zeros((), dtype=torch.bool, device=m.device)
-        first_bad = torch.full((), -1, dtype=torch.int64, device=m.device)
-        for k in range(1, self._num_terms + 1):
-            term = term - scale * apply_P(A(term))
-            if self._check_nan:
-                isnan = torch.isnan(term).any()
-                first_bad = torch.where(~flag & isnan, k, first_bad)
-                flag = flag | isnan
-            result = result + term
-        if self._check_nan and bool(flag):  # the one host read, after the loop
+        if self._A.capturable and (P is None or P.capturable):
+            leaf = pytree.tree_leaves(M)[0]
+            series = cached_program(
+                self, ("neumann", leaf.shape[-1], leaf.dtype),
+                lambda: CapturedProgram(
+                    self._series(), self.device, "the Neumann series",
+                    program_pool(self, self.device),
+                ),
+            )
+        else:  # A or P streams, holds a mesh or is not marked capturable
+            series = self._series()
+        result, flag, first_bad = series(M)
+        if self._check_nan and bool(flag):  # the one host read, after the series
             raise ValueError(
                 f"Neumann series diverged (NaN at term {int(first_bad)}); "
                 "decrease `scale` or the spectral radius of I - scale*A."
             )
-        return unravel(scale * result)
+        return result
 
     def _adjoint(self) -> LinearOperator:
         P = self._preconditioner

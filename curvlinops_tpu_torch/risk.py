@@ -6,18 +6,37 @@ dict of named parameters, or a plain callable ``(params, X) ->
 prediction``), a loss, the parameters at which the curvature is evaluated,
 and an iterable of ``(X, y)`` batches. The per-batch matrix-matrix product
 is one function ``(params, X, y, M, c, generator) -> c * A_batch M`` built
-with ``torch.func`` transforms; ``_matmat`` streams the dataset and adds the
-per-batch results on the device.
+with ``torch.func`` transforms.
+
+The loop over the dataset is fused as in the JAX package
+(``fuse_batches``, class default ``"auto"``): the batches are read once and
+held on the device (:meth:`EmpiricalRiskOperator._materialize_fused_state`),
+and the whole accumulation, every batch's kernel and every add, runs as one
+:class:`~curvlinops_tpu_torch.utils.graphs.CapturedProgram` per number of
+columns and dtype: a CUDA graph replayed with one launch (eagerly on the
+CPU). The mode record ``_batch_fn_cache["fused_state"][0]`` is JAX's:
+``"scan"`` for uniform batches of at most ``_FUSE_STACK_BYTE_LIMIT`` bytes in
+all, ``"unroll"`` for at most ``_FUSE_UNROLL_LIMIT`` other batches. The
+batches stream one at a time (``fused_state`` is ``None``) past those limits
+(a graph per batch shape would keep a memory pool each; reading stops at the
+first batch past both, so at most ``_FUSE_UNROLL_LIMIT`` batches are ever
+held for a dataset that streams), with a progress
+bar, or with ``fuse_batches = False``, the opt-out. On the card a capture
+that fails raises; nothing falls back to streaming.
 
 Differences from the JAX package:
 
-- Streaming is the only data loop. The JAX package fuses a multi-batch
-  loop into one XLA program (``_fused_matmat``); it computes the same
-  matrix with fewer dispatches.
+- A dataset of one batch is fused too (mode ``"single"``), where the JAX
+  package streams it through its jitted per-batch program: one captured
+  program is that program's counterpart.
 - Randomness comes from one ``torch.Generator`` per batch,
   :func:`batch_generator` of the operator's seed and the batch index, in
   the order the data is read (the JAX package's ``fold_in``): chained or
-  repeated matvecs replay the same samples.
+  repeated matvecs replay the same samples. The fused loop samples each
+  batch once, from that generator, and replays the outcome
+  (:class:`~curvlinops_tpu_torch.utils.graphs.DrawTape`): the streamed
+  samples, held on the device (a cross-entropy batch holds its sampled
+  class indices, ``[N, D, M]`` integers, not the ``[N, D, M, C]`` race).
 - The determinism rails compare gradients and matvecs by norm
   (:func:`~curvlinops_tpu_torch.ops.base.close_by_norm`): cuDNN's
   weight-gradient atomics make two identical passes differ entrywise.
@@ -36,7 +55,11 @@ Differences from the JAX package:
   batch's (:class:`~curvlinops_tpu_torch.parallel.mesh.ShardedGenerator`),
   each product is summed over the mesh's data axis once, after the batch
   loop, and the determinism probes decide on reduced values, so that every
-  process takes the same branch.
+  process takes the same branch. A fused program holds the process's loop;
+  the sum over the mesh runs after its replay, outside the graph, so a
+  Neumann series or Lanczos recurrence over a mesh operator runs eagerly
+  (:attr:`CurvatureLinearOperator.capturable`), replaying the fused loop
+  once a product.
 """
 
 from __future__ import annotations
@@ -51,9 +74,15 @@ from torch import nn
 from torch.utils import _pytree as pytree
 
 from curvlinops_tpu_torch.losses import CrossEntropyLoss, Loss
-from curvlinops_tpu_torch.ops.base import LinearOperator, close_by_norm
+from curvlinops_tpu_torch.ops.base import (
+    LinearOperator,
+    cached_program,
+    close_by_norm,
+    program_pool,
+)
 from curvlinops_tpu_torch.parallel.mesh import DataShards, gather_params
 from curvlinops_tpu_torch.utils.flatten import spec_of, tree_add
+from curvlinops_tpu_torch.utils.graphs import CapturedProgram, DrawTape
 from curvlinops_tpu_torch.utils.misc import as_model_fn
 
 
@@ -83,6 +112,47 @@ def batch_generator(seed: int, batch_index: int, device: torch.device) -> torch.
     gen = torch.Generator(device=device)
     gen.manual_seed(int(state[0]))
     return gen
+
+
+def _accumulate_matmat(kernel: Callable, params: Any, M: Any, batches: Iterable) -> Any:
+    """``sum_b kernel(params, X_b, y_b, M, c_b, gen_b)`` over ``batches`` of
+    ``(X, y, c, generator)``, in order: the one accumulation of the streamed
+    and the fused loop.
+
+    Raises:
+        ValueError: If there are no batches.
+    """
+    AM = None
+    for X, y, c, gen in batches:
+        out = kernel(params, X, y, M, c, gen)
+        AM = out if AM is None else tree_add(AM, out)
+    if AM is None:
+        raise ValueError("Empty dataset: no batches to accumulate over.")
+    return AM
+
+
+def _accumulate_gradient_and_loss(
+    model_fn: Callable, loss_fn, params: Any, batches: Iterable
+) -> tuple[Any, torch.Tensor]:
+    """``(gradient, loss)`` of ``sum_b c_b * loss_b`` over ``batches`` of
+    ``(X, y, c, generator)``: the one accumulation of the streamed and the
+    fused loop."""
+    total_grad, total_loss = None, None
+    for X, y, c, _ in batches:
+        grad, loss = torch.func.grad_and_value(lambda p: c * loss_fn(model_fn(p, X), y))(params)
+        total_loss = loss if total_loss is None else total_loss + loss
+        total_grad = grad if total_grad is None else tree_add(total_grad, grad)
+    return total_grad, total_loss
+
+
+def _held_batches(state: tuple):
+    """Yield ``(X, y, c, tape)`` over the held batches of a fused state, each
+    tape rewound to its first draw."""
+    _, data, cs, tapes = state
+    for (X, y), c, tape in zip(data, cs, tapes):
+        if tape is not None:
+            tape.rewind()
+        yield X, y, c, tape
 
 
 def _tree_close(a: Any, b: Any, rtol: float, atol: float) -> bool:
@@ -133,6 +203,14 @@ class EmpiricalRiskOperator(LinearOperator):
     NEEDS_NUM_PER_EXAMPLE_LOSS_TERMS: bool = False
     USES_RANDOMNESS: bool = False
 
+    # "auto" fuses the dataset loop within the limits below; False streams
+    fuse_batches: bool | str = "auto"
+    # uniform batches of at most this many bytes in all fuse as "scan" at any
+    # batch count (the JAX package stacks them into one array)
+    _FUSE_STACK_BYTE_LIMIT = 2 << 30
+    # at most this many other batches fuse as "unroll"; more stream
+    _FUSE_UNROLL_LIMIT = 64
+
     def __init__(
         self,
         model: nn.Module | Callable[[Any, Any], torch.Tensor],
@@ -171,6 +249,7 @@ class EmpiricalRiskOperator(LinearOperator):
         self._progressbar = progressbar
         self._max_vmap_columns = max_vmap_columns
         self._batch_matmat_fn: Callable | None = None
+        self._batch_fn_cache: dict[str, Any] = {}
 
         param_spec = spec_of(self._params)
         super().__init__(
@@ -313,6 +392,53 @@ class EmpiricalRiskOperator(LinearOperator):
         ``M`` carries a trailing column axis on every leaf."""
         raise NotImplementedError
 
+    def _fused_state(self) -> tuple | None:
+        """The held batches of the fused loop, or ``None`` to stream."""
+        if self._progressbar or self.fuse_batches is False:
+            return None
+        if "fused_state" not in self._batch_fn_cache:
+            self._materialize_fused_state()
+        return self._batch_fn_cache["fused_state"]
+
+    def _materialize_fused_state(self) -> None:
+        """Read the dataset once and record ``_batch_fn_cache["fused_state"]``.
+
+        It is ``(mode, data, cs, tapes)``: this process's slice of each batch
+        (on the device, as the streamed loop reads it), its normalization
+        factor (:meth:`_slice_factor`) and, for operators that sample, a
+        :class:`DrawTape` of its generator; or ``None`` past the limits (the
+        JAX package's policy, except that one batch is ``"single"``). Reading
+        stops, and what was held is dropped, at the first batch that puts the
+        dataset past both limits: more than ``_FUSE_UNROLL_LIMIT`` batches
+        that are ragged or exceed ``_FUSE_STACK_BYTE_LIMIT`` bytes in all.
+        """
+        make = None
+        if self.USES_RANDOMNESS:
+            make = lambda idx: batch_generator(self._seed, idx, self.device)  # noqa: E731
+        data, cs, tapes, signatures, nbytes = [], [], [], set(), 0
+        batches = self._shards.batches(self._loop_over_data(desc="fuse_batches"), self.device, make)
+        for X, y, Xs, ys, gen in batches:
+            leaves, spec = pytree.tree_flatten((X, y))
+            signatures.add((spec, tuple(tuple(t.shape) for t in leaves)))
+            nbytes += sum(t.numel() * t.element_size() for t in leaves)
+            uniform = len(signatures) == 1 and nbytes <= self._FUSE_STACK_BYTE_LIMIT
+            if len(data) >= self._FUSE_UNROLL_LIMIT and not uniform:
+                batches.close()  # past both limits: stream, holding nothing
+                self._batch_fn_cache["fused_state"] = None
+                return
+            data.append((Xs, ys))
+            cs.append(self._slice_factor(X, y, ys))
+            tapes.append(None if gen is None else DrawTape(gen))
+        if len(data) == 1:
+            mode = "single"
+        elif len(signatures) == 1 and nbytes <= self._FUSE_STACK_BYTE_LIMIT:
+            mode = "scan"
+        elif 1 < len(data) <= self._FUSE_UNROLL_LIMIT:
+            mode = "unroll"
+        else:
+            mode = None
+        self._batch_fn_cache["fused_state"] = mode and (mode, data, cs, tapes)
+
     @torch.no_grad()
     def _matmat(self, M: Any) -> Any:
         # no_grad: the torch.func transforms inside ignore it, and it keeps
@@ -321,13 +447,22 @@ class EmpiricalRiskOperator(LinearOperator):
         # that an iterative solver's loop would keep alive
         if self._batch_matmat_fn is None:
             self._batch_matmat_fn = self._make_batch_matmat()
-        AM = None
-        for X, y, c, gen in self._shard_loop(desc="matmat"):
-            out = self._batch_matmat_fn(self._params, X, y, M, c, gen)
-            AM = out if AM is None else tree_add(AM, out)
-        if AM is None:
-            raise ValueError("Empty dataset: no batches to accumulate over.")
-        return self._shards.all_reduce(AM)
+        kernel, params = self._batch_matmat_fn, self._params
+        state = self._fused_state()
+        if state is None:
+            return self._shards.all_reduce(
+                _accumulate_matmat(kernel, params, M, self._shard_loop(desc="matmat"))
+            )
+        leaf = pytree.tree_leaves(M)[0]
+        program = cached_program(
+            self, ("fused_matmat", leaf.shape[-1], leaf.dtype),
+            lambda: CapturedProgram(
+                lambda M: _accumulate_matmat(kernel, params, M, _held_batches(state)),
+                self.device, f"{type(self).__name__}'s fused matmat",
+                program_pool(self, self.device),
+            ),
+        )
+        return self._shards.all_reduce(program(M))
 
     # ---- gradient and loss over the dataset ----------------------------- #
     @torch.no_grad()
@@ -339,15 +474,22 @@ class EmpiricalRiskOperator(LinearOperator):
         """
         if self._loss_fn is None:
             raise ValueError("No loss function specified.")
-        model_fn, loss_fn = self._model_fn, self._loss_fn
-        total_loss, total_grad = None, None
-        for X, y, c, _ in self._shard_loop(desc="gradient_and_loss"):
-            grad, loss = torch.func.grad_and_value(
-                lambda p: c * loss_fn(model_fn(p, X), y)
-            )(self._params)
-            total_loss = loss if total_loss is None else total_loss + loss
-            total_grad = grad if total_grad is None else tree_add(total_grad, grad)
-        return self._shards.all_reduce((total_grad, total_loss))
+        model_fn, loss_fn, params = self._model_fn, self._loss_fn, self._params
+        state = self._fused_state()
+        if state is None:
+            return self._shards.all_reduce(_accumulate_gradient_and_loss(
+                model_fn, loss_fn, params, self._shard_loop(desc="gradient_and_loss")
+            ))
+        program = cached_program(
+            self, ("fused_grad_loss",),
+            lambda: CapturedProgram(
+                lambda: _accumulate_gradient_and_loss(
+                    model_fn, loss_fn, params, _held_batches(state)),
+                self.device, f"{type(self).__name__}'s fused gradient_and_loss",
+                program_pool(self, self.device),
+            ),
+        )
+        return self._shards.all_reduce(program())
 
     # ---- determinism rails ---------------------------------------------- #
     def _batch_pred_loss_grad(self):
@@ -456,3 +598,13 @@ class EmpiricalRiskOperator(LinearOperator):
 
 class CurvatureLinearOperator(EmpiricalRiskOperator):
     """Square operators in parameter space (Hessian, GGN, Fisher, ...)."""
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a Neumann or Lanczos program may capture the products
+        inline: the batches are fused (held on the device, their draws
+        taped) and no sum over a mesh follows. A streamed operator reads its
+        loader (host copies, a prefetch thread, fresh generators) and a
+        mesh's ``all_reduce`` runs after each product, so a program over
+        either runs eagerly."""
+        return self._mesh is None and self._fused_state() is not None

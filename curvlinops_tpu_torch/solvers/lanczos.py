@@ -12,10 +12,16 @@ PyTorch counterpart of ``curvlinops_tpu/solvers/lanczos.py``:
 - Densities are one broadcast sum of Gaussian bumps.
 - The ``*Cached`` classes keep Lanczos runs across hyperparameter sweeps.
 
-The JAX package runs each fixed-length loop as one ``fori_loop`` program;
-here each is a Python loop of eager operations whose state (the vectors,
-``alpha``, ``beta``) stays on the device: the loop reads nothing to the host,
-only its caller reads the result. Start vectors come from a
+The JAX package runs each fixed-length loop as one ``fori_loop`` program.
+Here each recurrence, the operator's products included, runs as one
+:class:`~curvlinops_tpu_torch.utils.graphs.CapturedProgram` cached on the
+operator (:func:`~curvlinops_tpu_torch.ops.base.cached_program`) per number
+of steps, columns and dtype: one CUDA graph, eager on the CPU. It reads
+nothing to the host; the small eigenproblems of its tridiagonals run after
+the replay, outside the graph (their ``info`` check reads the host). An
+``A`` that is not a ``LinearOperator`` (a matrix), or one that is not
+``capturable`` (a streamed or mesh curvature operator), has no program and
+runs the recurrence eagerly. Start vectors come from a
 ``torch.Generator`` (seed 0 unless given; drawn on the generator's device,
 then moved to the operator's), where the JAX package threads
 ``jax.random`` keys; ``v0`` passes one in directly.
@@ -24,11 +30,13 @@ then moved to the operator's), where the JAX package threads
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Callable
 
 import torch
 
-from curvlinops_tpu_torch.ops.base import LinearOperator
+from curvlinops_tpu_torch.ops.base import LinearOperator, cached_program, program_pool
+from curvlinops_tpu_torch.utils.graphs import CapturedProgram
 
 
 def flat_matmat(A) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -60,35 +68,67 @@ def _tridiagonal(alphas: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
     return torch.diag(alphas) + torch.diag(betas, 1) + torch.diag(betas, -1)
 
 
+def _recurrence(A, key: tuple, make: Callable, start: torch.Tensor):
+    """``make(mm)(start)`` as the program cached on ``A`` under ``key``, with
+    ``mm`` :func:`flat_matmat` of ``A`` (held by a weak reference, so that
+    ``A``'s cache does not keep ``A`` alive); eager for a matrix ``A`` or an
+    operator that is not ``capturable``."""
+    if not (isinstance(A, LinearOperator) and A.capturable):
+        return make(flat_matmat(A))(start)
+    ref = weakref.ref(A)
+    program = cached_program(
+        A, key,
+        lambda: CapturedProgram(
+            make(lambda V: flat_matmat(ref())(V)), start.device, f"Lanczos {key}",
+            program_pool(A, start.device),
+        ),
+    )
+    return program(start)
+
+
+def fast_lanczos_recurrence(mm: Callable, ncv: int) -> Callable:
+    """``V -> (alphas [R, ncv], betas [R, ncv - 1])``: ``ncv`` steps of
+    Lanczos without reorthogonalization on the columns of ``V`` ``[dim, R]``,
+    one product ``mm`` a step."""
+
+    def run(V: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        tiny = torch.finfo(V.dtype).tiny
+        R = V.shape[1]
+        V = V / torch.linalg.vector_norm(V, dim=0)
+        V_prev = torch.zeros_like(V)
+        alphas = torch.zeros((R, ncv), dtype=V.dtype, device=V.device)
+        betas = torch.zeros((R, max(ncv - 1, 1)), dtype=V.dtype, device=V.device)
+        beta = torch.zeros(R, dtype=V.dtype, device=V.device)
+        for m in range(ncv):
+            W = mm(V) - beta * V_prev
+            alpha = (W * V).sum(0)
+            alphas[:, m] = alpha
+            W = W - alpha * V
+            beta = torch.linalg.vector_norm(W, dim=0)
+            if m < ncv - 1:
+                betas[:, m] = beta
+            V_prev, V = V, W / torch.clamp(beta, min=tiny)
+        return alphas, betas[:, : ncv - 1]
+
+    return run
+
+
 def fast_lanczos_columns(A, V: torch.Tensor, ncv: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Lanczos without reorthogonalization on every column of ``V``
     ``[dim, R]`` at once, ``ncv`` steps: each step is one operator matmat
-    over the ``R`` columns, and the ``R`` tridiagonals are eigendecomposed in
-    one batched ``eigh`` in float64 (``[R, ncv, ncv]``: a float32 ``eigh``
-    would blur the small Ritz values by the largest one's roundoff), its
-    results cast back to ``V``'s dtype.
+    over the ``R`` columns (the recurrence is one cached program,
+    :func:`fast_lanczos_recurrence`), and the ``R`` tridiagonals are
+    eigendecomposed in one batched ``eigh`` in float64 (``[R, ncv, ncv]``: a
+    float32 ``eigh`` would blur the small Ritz values by the largest one's
+    roundoff), its results cast back to ``V``'s dtype.
 
     Returns:
         ``(evals [R, ncv], evecs [R, ncv, ncv])``.
     """
-    mm = flat_matmat(A)
-    tiny = torch.finfo(V.dtype).tiny
-    R = V.shape[1]
-    V = V / torch.linalg.vector_norm(V, dim=0)
-    V_prev = torch.zeros_like(V)
-    alphas = torch.zeros((R, ncv), dtype=V.dtype, device=V.device)
-    betas = torch.zeros((R, max(ncv - 1, 1)), dtype=V.dtype, device=V.device)
-    beta = torch.zeros(R, dtype=V.dtype, device=V.device)
-    for m in range(ncv):
-        W = mm(V) - beta * V_prev
-        alpha = (W * V).sum(0)
-        alphas[:, m] = alpha
-        W = W - alpha * V
-        beta = torch.linalg.vector_norm(W, dim=0)
-        if m < ncv - 1:
-            betas[:, m] = beta
-        V_prev, V = V, W / torch.clamp(beta, min=tiny)
-    off = betas[:, : ncv - 1]
+    alphas, off = _recurrence(
+        A, ("fast_lanczos", ncv, V.shape[1], V.dtype),
+        lambda mm: fast_lanczos_recurrence(mm, ncv), V,
+    )
     T = torch.diag_embed(alphas) + torch.diag_embed(off, 1) + torch.diag_embed(off, -1)
     evals, evecs = torch.linalg.eigh(T.double())
     return evals.to(V.dtype), evecs.to(V.dtype)
@@ -129,31 +169,42 @@ def reorthogonalized_lanczos(
         an eigenpair ``(theta, s)`` of ``T`` gives the Ritz pair
         ``(theta, V^T s)``.
     """
-    dim = A.shape[1]
-    ncv = min(num_iters, dim)
-    v = v0 if v0 is not None else start_vector(A, generator, (dim,))
-    mv1 = flat_matvec(A)
+    ncv = min(num_iters, A.shape[1])
+    v = v0 if v0 is not None else start_vector(A, generator, (A.shape[1],))
+    return _recurrence(
+        A, ("lanczos_extreme", ncv, power, v.dtype),
+        lambda mm: reorthogonalized_recurrence(mm, ncv, power), v,
+    )
 
-    def mv(x):
+
+def reorthogonalized_recurrence(mm: Callable, ncv: int, power: int = 1) -> Callable:
+    """``v -> (V [ncv, dim], T [ncv, ncv])``: ``ncv`` steps of Lanczos with
+    full reorthogonalization on ``A^power`` from ``v`` ``[dim]``, ``power``
+    products ``mm`` (on ``[dim, 1]`` columns) a step."""
+
+    def mv(x: torch.Tensor) -> torch.Tensor:
         for _ in range(power):
-            x = mv1(x)
+            x = mm(x[:, None])[:, 0]
         return x
 
-    tiny = torch.finfo(v.dtype).tiny
-    v = v / torch.linalg.vector_norm(v)
-    V = torch.zeros((ncv, dim), dtype=v.dtype, device=v.device)
-    alphas = torch.zeros(ncv, dtype=v.dtype, device=v.device)
-    betas = torch.zeros(ncv, dtype=v.dtype, device=v.device)
-    for m in range(ncv):
-        V[m] = v
-        w = mv(v)
-        alphas[m] = torch.dot(w, v)
-        # full reorthogonalization against the stored basis, twice
-        w = w - V.T @ (V @ w)
-        w = w - V.T @ (V @ w)
-        betas[m] = beta = torch.linalg.vector_norm(w)
-        v = w / torch.clamp(beta, min=tiny)
-    return V, _tridiagonal(alphas, betas[: ncv - 1])
+    def run(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        tiny = torch.finfo(v.dtype).tiny
+        v = v / torch.linalg.vector_norm(v)
+        V = torch.zeros((ncv, v.shape[0]), dtype=v.dtype, device=v.device)
+        alphas = torch.zeros(ncv, dtype=v.dtype, device=v.device)
+        betas = torch.zeros(ncv, dtype=v.dtype, device=v.device)
+        for m in range(ncv):
+            V[m] = v
+            w = mv(v)
+            alphas[m] = torch.dot(w, v)
+            # full reorthogonalization against the stored basis, twice
+            w = w - V.T @ (V @ w)
+            w = w - V.T @ (V @ w)
+            betas[m] = beta = torch.linalg.vector_norm(w)
+            v = w / torch.clamp(beta, min=tiny)
+        return V, _tridiagonal(alphas, betas[: ncv - 1])
+
+    return run
 
 
 def lanczos_extreme_eigenvalues(

@@ -38,6 +38,8 @@ from typing import Any, Callable
 import torch
 from torch.utils import _pytree as pytree
 
+from curvlinops_tpu_torch.utils.graphs import capturing
+
 _ORIGINAL_COND = torch.cond
 _SIGNATURE = inspect.signature(_ORIGINAL_COND)
 _HANDLERS: list[Callable] = []  # the innermost is last
@@ -86,7 +88,10 @@ def predicate(pred) -> torch.Tensor:
 
 def concrete(pred) -> bool | None:
     """The predicate's value, or ``None`` if it has none yet (batched under
-    ``vmap``, or a fake tensor while a graph is traced)."""
+    ``vmap``, a fake tensor while a graph is traced, or a CUDA tensor while
+    its stream is captured, where reading it is refused)."""
+    if isinstance(pred, torch.Tensor) and capturing(pred.device):
+        return None
     try:
         return bool(pred)
     except RuntimeError:

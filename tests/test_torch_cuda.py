@@ -19,7 +19,13 @@ an MLP in HuggingFace's ``Conv1D`` layout against its ``nn.Linear`` form,
 each on the card against the CPU, and the flash GPT with ``Conv1D`` layers,
 whose ``addmm`` taps feed the flash kernels' factor pass; data parallelism
 (a one-process NCCL mesh, and a two-process one on two cards) and the
-prefetching pipeline's pinned copies on a side stream.
+prefetching pipeline's pinned copies on a side stream; the captured
+programs: each curvature operator's fused matmat and the fused gradient
+against the streamed loop (one batch, uniform and ragged batches), MC
+replays that draw the same samples, outputs not aliased between calls, a
+Neumann series and fast Lanczos capturing a fused GGN inline, the same
+over a streamed MC GGN (resident or prefetched) running eagerly, an epoch
+bump freeing the graphs' pool, and a capture that cannot succeed raising.
 
 These tests need the card: they skip without one. The card's machine has no
 JAX, so this file imports only the port, and runs there without the suite's
@@ -38,6 +44,7 @@ from curvlinops_tpu_torch import (
     GGNLinearOperator,
     HessianLinearOperator,
     JacobianLinearOperator,
+    PrefetchToDevice,
     TransposedJacobianLinearOperator,
 )
 from curvlinops_tpu_torch.kfac import kernels
@@ -1036,3 +1043,187 @@ def test_two_process_nccl_mesh_matches_meshless(cuda, tmp_path):
     assert codes == [0, 0]
     res = torch.load(tmp_path / "results.pt", weights_only=False)
     assert "nccl" in res["backend"] and res["rel_err"] < 1e-12
+
+
+# ---------------------------------------------------------------------- #
+# captured programs: the fused loop, Neumann and Lanczos as CUDA graphs
+# ---------------------------------------------------------------------- #
+FUSED_SPLITS = {"single": [6], "scan": [2, 2, 2], "unroll": [2, 3, 1]}
+
+
+def _fused_pair(cuda, op: str, mode: str, prefetch: bool = False):
+    """The narrow ResNet (float64) on 6 images split as ``mode``: the
+    operator fused, and the same operator streamed (from host batches
+    through ``PrefetchToDevice`` with ``prefetch``)."""
+    p = tresnet.narrow_resnet_problem(device=cuda)
+    gen = torch.Generator().manual_seed(1)
+    X = torch.rand((6, 3, 16, 16), generator=gen, dtype=torch.float64).to(cuda)
+    y = torch.randint(0, 10, (6,), generator=gen).to(cuda)
+    data = list(zip(X.split(FUSED_SPLITS[mode]), y.split(FUSED_SPLITS[mode])))
+    cls, kw = {"ggn": (GGNLinearOperator, {}), "mc": (GGNLinearOperator, {"mc_samples": 1}),
+               "hessian": (HessianLinearOperator, {}), "ef": (EFLinearOperator, {}),
+               "gradient": (GGNLinearOperator, {})}[op]
+    fed = PrefetchToDevice([(X.cpu(), y.cpu()) for X, y in data], device=cuda) if prefetch else data
+    fused, streamed = (cls(p.model, p.loss_fn, p.params, d, check_deterministic=False, **kw)
+                       for d in (data, fed))
+    streamed.fuse_batches = False
+    v = {n: torch.randn(t.shape, generator=gen, dtype=t.dtype).to(cuda)
+         for n, t in p.params.items()}
+    return fused, streamed, v
+
+
+def _flat(tree) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tree.values()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(FUSED_SPLITS))
+@pytest.mark.parametrize("op", ["ggn", "mc", "hessian", "ef", "gradient"])
+def test_fused_matches_streamed_on_card(cuda, op, mode):
+    """Each operator's captured program (and the captured gradient) against
+    the streamed loop, float64; the mode record and the graph exist."""
+    fused, streamed, v = _fused_pair(cuda, op, mode)
+    if op == "gradient":
+        (g1, l1), (g2, l2) = fused.gradient_and_loss(), streamed.gradient_and_loss()
+        out, ref = torch.cat([_flat(g1), l1[None]]), torch.cat([_flat(g2), l2[None]])
+        key = ("fused_grad_loss",)
+    else:
+        out, ref = _flat(fused @ v), _flat(streamed @ v)
+        key = ("fused_matmat", 1, torch.float64)
+    assert fused._batch_fn_cache["fused_state"][0] == mode
+    assert fused._program_cache[1][key]._graph is not None
+    assert rel_err(out, ref) < 1e-10
+
+
+@pytest.mark.cuda
+def test_fused_mc_replays_equal_and_outputs_not_aliased_on_card(cuda):
+    """Two replays of the MC Fisher's program draw the same samples (its
+    taped draws), the streamed loop's; a result kept across a later call is
+    unchanged."""
+    fused, streamed, v = _fused_pair(cuda, "mc", "unroll")
+    first = fused @ v
+    kept = _flat(first).clone()
+    second = fused @ {n: 2 * t for n, t in v.items()}
+    assert torch.equal(_flat(first), kept)
+    assert rel_err(_flat(second), 2 * kept) < 1e-12
+    assert rel_err(kept, _flat(streamed @ v)) < 1e-10
+
+
+@pytest.mark.cuda
+def test_neumann_captures_fused_ggn_inline_on_card(cuda):
+    """A Neumann series over the fused ``G + I`` is one graph that runs the
+    GGN's loop inline (the GGN captures no graph of its own); it equals the
+    series over the streamed GGN, which runs eagerly and keeps no program.
+    Fast Lanczos likewise, through its public entry."""
+    from curvlinops_tpu_torch import IdentityLinearOperator, NeumannInverseLinearOperator
+    from curvlinops_tpu_torch.solvers import lanczos as tlanczos
+
+    fused, streamed, v = _fused_pair(cuda, "ggn", "scan")
+    ops = {}
+    for name, G in (("fused", fused), ("streamed", streamed)):
+        ops[name] = NeumannInverseLinearOperator(G + IdentityLinearOperator(G.in_spec),
+                                                 num_terms=8, scale=0.5)
+    x = ops["fused"] @ v
+    program = ops["fused"]._program_cache[1][("neumann", 1, torch.float64)]
+    assert program._graph is not None
+    assert fused._program_cache[1][("fused_matmat", 1, torch.float64)]._graph is None
+    assert rel_err(_flat(x), _flat(ops["streamed"] @ v)) < 1e-10
+    assert "_program_cache" not in ops["streamed"].__dict__
+    v0 = torch.randn(fused.shape[1], generator=torch.Generator().manual_seed(2),
+                     dtype=torch.float64).to(cuda)
+    evals, ref = (tlanczos.fast_lanczos(G, 6, v0=v0)[0] for G in (fused, streamed))
+    assert fused._program_cache[1][("fast_lanczos", 6, 1, torch.float64)]._graph is not None
+    assert rel_err(evals, ref) < 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [False, True], ids=["resident", "prefetch"])
+def test_series_over_streamed_mc_ggn_on_card(cuda, prefetch):
+    """A Neumann series over ``fuse_batches = False``'s MC GGN plus the
+    identity (resident batches, or host batches through
+    ``PrefetchToDevice``), and fast Lanczos on it, run eagerly through the
+    public entries (fresh generators a product, a loader thread: nothing a
+    graph may hold) and equal the captured programs over the fused MC
+    GGN."""
+    from curvlinops_tpu_torch import IdentityLinearOperator, NeumannInverseLinearOperator
+    from curvlinops_tpu_torch.solvers import lanczos as tlanczos
+
+    fused, streamed, v = _fused_pair(cuda, "mc", "unroll", prefetch=prefetch)
+    assert fused.capturable and not streamed.capturable
+    inv = {name: NeumannInverseLinearOperator(G + IdentityLinearOperator(G.in_spec),
+                                              num_terms=8, scale=0.5)
+           for name, G in (("fused", fused), ("streamed", streamed))}
+    assert rel_err(_flat(inv["streamed"] @ v), _flat(inv["fused"] @ v)) < 1e-10
+    assert "_program_cache" not in inv["streamed"].__dict__
+    assert inv["fused"]._program_cache[1][("neumann", 1, torch.float64)]._graph is not None
+    v0 = torch.randn(fused.shape[1], generator=torch.Generator().manual_seed(4),
+                     dtype=torch.float64).to(cuda)
+    ritz, ref = (tlanczos.fast_lanczos(G, 6, v0=v0)[0] for G in (streamed, fused))
+    assert rel_err(ritz, ref) < 1e-10 and "_program_cache" not in streamed.__dict__
+
+
+@pytest.mark.cuda
+def test_epoch_bump_frees_the_pool_on_card(cuda):
+    """Dropping an operator's programs (``invalidate_traced``) frees their
+    graphs' pool: the reserved memory falls."""
+    import gc
+
+    fused, _, v = _fused_pair(cuda, "hessian", "scan")
+    fused @ v
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved(cuda)
+    program = fused._program_cache[1][("fused_matmat", 1, torch.float64)]
+    grown = program.reserved_bytes[1] - program.reserved_bytes[0]
+    assert grown > 0
+    del program
+    fused.invalidate_traced()
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(cuda) <= held - grown
+
+
+@pytest.mark.cuda
+def test_capture_failure_raises_on_card(cuda):
+    """A model that reads the host cannot be captured: the product raises
+    with the reason instead of streaming; ``fuse_batches = False`` streams."""
+
+    class HostRead(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.lin = torch.nn.Linear(4, 3)
+
+        def forward(self, x):
+            if x.abs().sum().item() < 0:  # a host read: refused under capture
+                x = -x
+            return self.lin(x)
+
+    model = HostRead().to(cuda)
+    gen = torch.Generator().manual_seed(0)
+    data = [(torch.randn(8, 4, generator=gen).to(cuda), torch.randint(0, 3, (8,)).to(cuda))]
+    G = GGNLinearOperator(model, CrossEntropyLoss("mean"), dict(model.named_parameters()), data,
+                          check_deterministic=False)
+    v = torch.randn(G.shape[1], generator=gen).to(cuda)
+    with pytest.raises(RuntimeError, match="(?s)CUDA graph failed.*fuse_batches"):
+        G @ v
+    G.fuse_batches = False
+    assert torch.isfinite(G @ v).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["taken", "untaken", "two"])
+def test_cond_model_fused_on_card(cuda, mode):
+    """A ``torch.cond``-gated MLP's GGN is captured (its predicate cannot be
+    read while the stream is captured, so both branches run under
+    ``torch.where``) and equals the streamed GGN, float64."""
+    from curvlinops_tpu_torch.losses import MSELoss
+
+    model, data = _gated_mlp(mode, cuda)
+    params = dict(model.named_parameters())
+    fused, streamed = (GGNLinearOperator(model, MSELoss("mean"), params, data,
+                                         check_deterministic=False) for _ in range(2))
+    streamed.fuse_batches = False
+    gen = torch.Generator().manual_seed(1)
+    v = {n: torch.randn(p.shape, generator=gen, dtype=p.dtype).to(cuda) for n, p in params.items()}
+    assert rel_err(_flat(fused @ v), _flat(streamed @ v)) < 1e-12
+    assert fused._program_cache[1][("fused_matmat", 1, torch.float64)]._graph is not None

@@ -104,3 +104,15 @@ def test_mc_and_forward_only_shapes(name):
     assert mc.shape == (out.shape[0], 3, *out.shape[1:]) and torch.isfinite(mc).all()
     fo = tlh.make_grad_output_fn(tl, tlh.FisherType.FORWARD_ONLY)(out, tgt, gen)
     assert fo.shape == (out.shape[0], 0, *out.shape[1:])
+
+
+@pytest.mark.parametrize("shape", [(2,), (6, 1)], ids=["fewer", "extra_dim"])
+def test_ce_refuses_targets_not_matching_the_rows(shape):
+    """Targets whose shape is not the logits' rows are refused, as JAX's
+    ``take_along_axis`` refuses them, instead of reading the first rows."""
+    pred = np.random.default_rng(0).standard_normal((6, 3)).astype(np.float32)
+    y = np.zeros(shape, dtype=np.int64)
+    with pytest.raises(ValueError, match="targets of shape"):
+        tlosses.CrossEntropyLoss("mean")(torch.from_numpy(pred), torch.from_numpy(y))
+    with pytest.raises((ValueError, TypeError)):
+        jlosses.CrossEntropyLoss("mean")(jnp.asarray(pred), jnp.asarray(y))

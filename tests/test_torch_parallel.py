@@ -192,6 +192,7 @@ def _inputs() -> dict:
         "jacobians": jac,
         "uneven_batch": _mlp("mlp_ce_mean", 1, rows=6),
         "ggn_diagonal_mc": _mlp("mlp_ce_mean", 11),
+        "fused_mesh": _mlp("mlp_ce_mean", 13, rows=36),
     }
 
 
@@ -277,6 +278,7 @@ MESH_TOLERANCES = {
     "jacobians": (1e-5, 1e-6),
     "ggn_diagonal_mc": (1e-5, 1e-7),
     "flash_gpt_kfac": (1e-5, 1e-6),
+    "fused_mesh": (1e-5, 1e-6),
 }
 
 
@@ -294,6 +296,18 @@ def test_mesh_matches_single_process(world, name):
     for path, b in single.items():
         scale = max(1.0, float(np.abs(b).max())) if b.dtype.kind == "f" and b.size else 1.0
         report_nonclose(mesh[path], b, rtol=rtol, atol=atol * scale, name=f"{name}{path}")
+
+
+def test_fused_mesh_modes(world):
+    """Under the mesh the batches fuse with JAX's mode records; the
+    mesh-less operators compared with them stream. A Neumann series over
+    either keeps no program: it runs eagerly."""
+    res = _result(world, "fused_mesh")
+    assert res["modes"] == {
+        "uniform/mesh": "scan", "uniform/single": None,
+        "ragged/mesh": "unroll", "ragged/single": None,
+    }
+    assert not any(res["series_programs"].values()) and len(res["series_programs"]) == 4
 
 
 def test_make_mesh_rejects_positional_axis_names(world):

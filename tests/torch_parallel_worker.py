@@ -38,6 +38,7 @@ from curvlinops_tpu_torch import (
     KFACLinearOperator,
     KFOCLinearOperator,
     MINRESInverseLinearOperator,
+    NeumannInverseLinearOperator,
     losses,
 )
 from curvlinops_tpu_torch.kfac.chain import batched_eigh
@@ -284,6 +285,34 @@ def mesh_utilities(inp, mesh):
 
 
 # ---- the port's own traps --------------------------------------------- #
+@check
+def fused_mesh(inp, mesh):
+    """The fused matmat and gradient (``"scan"`` over uniform batches,
+    ``"unroll"`` over ragged ones) with the mesh, and the mesh-less
+    streamed ones; with each operator's mode record. A Neumann series over
+    ``G + I`` runs eagerly over both (neither is ``capturable``: the mesh's
+    sum follows each product), so it holds no program."""
+    model, loss_fn, params, (batch,) = problem(inp)
+    X, y = batch
+    v = tensors(inp["v"])
+    splits = {"uniform": [12, 12, 12], "ragged": [8, 12, 16]}
+    out = {"mesh": {}, "single": {}, "modes": {}, "series_programs": {}}
+    for name, sizes in splits.items():
+        data = list(zip(X.split(sizes), y.split(sizes)))
+        for key, m in (("mesh", mesh), ("single", None)):
+            G = GGNLinearOperator(model, loss_fn, params, data, mesh=m, check_deterministic=False)
+            G.fuse_batches = "auto" if m is not None else False
+            grad, loss = G.gradient_and_loss()
+            inv = NeumannInverseLinearOperator(G + IdentityLinearOperator(G.in_spec),
+                                               num_terms=8, scale=0.5)
+            out[key][name] = arrays({"matvec": G @ v, "grad": grad, "loss": loss,
+                                     "neumann": inv @ v})
+            state = G._batch_fn_cache.get("fused_state")
+            out["modes"][f"{name}/{key}"] = None if state is None else state[0]
+            out["series_programs"][f"{name}/{key}"] = "_program_cache" in inv.__dict__
+    return out
+
+
 @check
 def mc_ggn(inp, mesh):
     """Each MC loss's draws under the mesh are the mesh-less operator's."""
