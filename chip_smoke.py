@@ -5,7 +5,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. requires a CUDA device and prints the card's name and power limit;
 2. builds every kernel source (``curvlinops_tpu_torch/kfac/csrc``,
-   ``curvlinops_tpu_torch/models/csrc``) with ``nvcc``, all at once, and
+   ``curvlinops_tpu_torch/models/csrc``, ``curvlinops_tpu_torch/solvers/csrc``)
+   with ``nvcc``, all at once, and
    prints the build times and, for each kernel at the main paths' types
    (float32; head dim 64), its ``ptxas`` registers and spills and its SASS
    instruction count and TF32 tensor-core (``HMMA``) instructions from
@@ -133,11 +134,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     ``mesh=`` (flash 24 / 12 / 12); and ResNet-18's GGN matvec over 8 host
     batches of 64, blocking copies against ``PrefetchToDevice(size=2)``
     (times, busy shares, results equal);
-14. prints a JSON line of kernel results and, last, a JSON status line.
+14. the captured programs (``fused_phases``: the fused multi-batch loop, the
+    Neumann series and fast Lanczos as CUDA graphs) and the captured solvers
+    (``captured_solver_phases``, one JSON line per item), float32, on
+    ResNet-18 at batch 512 resident as one batch: MC KFAC's build (19 conv
+    kernel launches) and its damped inverse; CG on ``G + 0.1 I`` (plain and
+    preconditioned by that inverse), MINRES on the Hessian + 0.1 I, LSMR on
+    the Jacobian and LOBPCG (k = 4) on ``G``, each as a captured chunked loop
+    against the same solve run eagerly (ms an iteration, host reads, capture
+    seconds, pool GiB, busy share; the results within 1e-4 under cuDNN's
+    deterministic algorithms; a tolerance that stops each Krylov solve off a
+    chunk's end: equal iteration counts, at most ``ceil(k / CHUNK) + 1`` host
+    reads); chunk lengths 1, 2, 4, 8 on CG; the Neumann series and fast
+    Lanczos over KFAC's inverse, captured against eager; the small-eigh
+    kernel against ``torch.linalg.eigh`` on LOBPCG's own Gram matrices, with
+    its time;
+15. prints a JSON line of the port's own kernels (the small-eigh kernel,
+    which replaces no TPU kernel), a JSON line of the TPU kernels' results
+    and, last, a JSON status line.
 
 Each kernel's bound is the larger of its bytes (each input read once, each
 output written once) at 3.35 TB/s and its float32 products at the card's
-fastest float32-accurate rate, 3xTF32 (495 / 3 TFLOP/s).
+fastest float32-accurate rate, 3xTF32 (495 / 3 TFLOP/s); the small-eigh
+kernel's rotations run on the float32 CUDA cores (67 TFLOP/s), counted from
+its sweeps on this run's matrix.
 
 TF32 is off throughout: ``torch.backends.cudnn.allow_tf32`` defaults to
 True and would put the plain path's convolutions at three decimal digits.
@@ -180,7 +200,7 @@ CURV_BATCH_SPLIT = 2  # the ResNet batch as this many equal batches
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 495e12 / 3, 3.35e12
 PEAK_NAME = "3xTF32, 495/3 = 165 TFLOP/s; 3.35 TB/s"
 # the port's own kernels, listed in every profile wherever they rank
-PORT_KERNELS = ("cov_tiles_kernel", "reduce_mirror_kernel", "flash_fwd_kernel",
+PORT_KERNELS = ("cov_tiles_kernel", "reduce_mirror_kernel", "small_eigh_kernel", "flash_fwd_kernel",
                 "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 
 
@@ -322,11 +342,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device, and none is available.")
     port = REPO / "curvlinops_tpu_torch"
-    if not ((port / "kfac" / "csrc").is_dir() and (port / "models" / "csrc").is_dir()):
+    if not all((port / d / "csrc").is_dir() for d in ("kfac", "models", "solvers")):
         raise SystemExit("chip_smoke.py must run from the root of a checkout of the repo.")
     sys.path.insert(0, str(REPO))
     from curvlinops_tpu_torch.kfac import kernels
     from curvlinops_tpu_torch.models import flash_attention as fa
+    from curvlinops_tpu_torch.solvers import small_eigh
     from curvlinops_tpu_torch.utils import cuda_build
 
     smi = subprocess.run(
@@ -340,7 +361,7 @@ def main() -> None:
     dev = torch.device(DEVICE)
 
     # ---- 1. build: one nvcc per source, all started together ---------- #
-    sources = [kernels.SOURCE, fa.SOURCE]
+    sources = [kernels.SOURCE, fa.SOURCE, small_eigh.SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(cuda_build.build, sources))
     for lib_path, build_s, build_log in builds:
@@ -373,6 +394,8 @@ def main() -> None:
     marks.append(time.perf_counter())
     fused_launches = fused_phases(torch, dev, smi)
     marks.append(time.perf_counter())
+    captured_solvers = captured_solver_phases(torch, dev, smi)
+    marks.append(time.perf_counter())
     for entry in entries:
         entry["launches"] += phase_launches[entry["name"]]
         entry["launches"] += stacked_launches.get(entry["name"], 0)
@@ -380,12 +403,15 @@ def main() -> None:
         entry["launches"] += cond_launches.get(entry["name"], 0)
         entry["launches"] += parallel_launches.get(entry["name"], 0)
         entry["launches"] += fused_launches.get(entry["name"], 0)
+        entry["launches"] += captured_solvers["launches"].get(entry["name"], 0)
     print("phase seconds: ResNet-18 kernel and KFAC {:.1f}, GPT kernels and KFAC {:.1f}, "
           "curvature operators {:.1f}, solvers {:.1f}, KFAC family {:.1f}, estimators, "
           "GGN diagonal and held linearizations {:.1f}, transformer family {:.1f}, "
           "collector (bias-only, Conv1D layout) {:.1f}, cond-gated GPT and fuzz twins "
-          "{:.1f}, data parallelism and prefetch {:.1f}, captured programs {:.1f}".format(
-              *(b - a for a, b in zip(marks, marks[1:]))))
+          "{:.1f}, data parallelism and prefetch {:.1f}, captured programs {:.1f}, captured "
+          "solvers {:.1f}".format(*(b - a for a, b in zip(marks, marks[1:]))))
+    # the port's own kernels, which replace no TPU kernel
+    print(json.dumps({"port_kernels": [captured_solvers["small_eigh"]]}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1238,6 +1264,7 @@ def solver_phases(torch, dev, smi: str) -> None:
     for label, pre in (("plain", None), ("KFAC-preconditioned", P)):
         inv = CGInverseLinearOperator(A, maxiter=SOLVER_ITERS, tol=0.0, atol=0.0,
                                       preconditioner=pre)
+        inv @ b  # warm-up and capture: the time below is a replay's
         torch.cuda.reset_peak_memory_stats(dev)
         x, solve_ms = timed(torch, lambda: inv @ b)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -1254,16 +1281,17 @@ def solver_phases(torch, dev, smi: str) -> None:
                matvec_ms=matvec_ms, preconditioner_ms=precond_ms if pre else None,
                iterations_per_s=iters / solve_ms * 1e3, peak_gib=peak,
                relative_residuals=curve, recomputed_final=true_res, card=smi)
+        one = CGInverseLinearOperator(A, maxiter=1, tol=0.0, atol=0.0, preconditioner=pre)
+        # device_profile's unprofiled first call captures; the profile replays
         device_profile(torch, f"one CG iteration ({label}, with the initial residual's matvec)",
-                       lambda: CGInverseLinearOperator(A, maxiter=1, tol=0.0, atol=0.0,
-                                                       preconditioner=pre) @ b)
+                       lambda: one @ b)
     launches = kernels.conv_input_covariance.launches
     report("KFAC preconditioner", build_ms=build_ms, inverse_ms=inverse_ms,
            apply_ms=precond_ms, conv_kernel_launches=launches)
     if launches < 19:
         raise RuntimeError(f"the preconditioner's factor pass launched the conv kernel {launches} "
                            "times, expected >= 19")
-    del kfac, P, inv, x
+    del kfac, P, inv, one, x
 
     # ---- 5. Neumann, scaled by 1 / (lambda_max(G) + lambda) ----------- #
     (lo, hi), lanczos_ms = timed(torch, lambda: lanczos_extreme_eigenvalues(
@@ -1316,6 +1344,7 @@ def solver_phases(torch, dev, smi: str) -> None:
     v = tree_randn_like(torch.Generator().manual_seed(2), H.in_spec)
     hmatvec_ms = time_matvec(torch, AH, v, "Hessian + lambda I", smi)
     inv = MINRESInverseLinearOperator(AH, maxiter=SOLVER_ITERS, tol=0.0, atol=0.0)
+    inv @ v  # warm-up and capture
     x, solve_ms = timed(torch, lambda: inv @ v)
     hist = inv.last_info["residual_history"][:, 0]
     report("MINRES", operator=f"Hessian on all {H.shape[0]} parameters + {lam} I",
@@ -1332,6 +1361,7 @@ def solver_phases(torch, dev, smi: str) -> None:
     jmatvec_ms = time_ms(lambda: J @ v, torch, reps=10)
     jtmatvec_ms = time_ms(lambda: J.T @ w, torch, reps=10)
     inv = LSMRInverseLinearOperator(J, maxiter=SOLVER_ITERS, atol=0.0, btol=0.0)
+    inv @ w  # warm-up and capture
     x, solve_ms = timed(torch, lambda: inv @ w)
     hist = inv.lsmr_info["normar_history"][:, 0]
     # x and J^T r are flat [P] tensors (w is flat), J x the [N, C] predictions
@@ -3374,6 +3404,415 @@ def fused_phases(torch, dev, smi: str) -> dict:
         del gpt, fused, streamed, data, Xg, yg
         torch.cuda.empty_cache()
     return {f"flash_attention_{n}": c for n, c in fa.launches.items()}
+
+
+# ---------------------------------------------------------------------- #
+# captured solvers: CG, MINRES, LSMR and LOBPCG as chunked loops
+# ---------------------------------------------------------------------- #
+CS_TOL = 1e-4  # captured against eager: solutions and LOBPCG eigenvalues, relative (float32)
+CS_STOP_FROM = 10  # the tolerance runs stop at the first iteration from here off a chunk's end
+CS_CHUNKS = (1, 2, 4, 8)  # chunk lengths measured on plain CG (the module's CHUNK is one)
+CS_SERIES = 16  # Neumann terms and fast Lanczos steps over KFAC's inverse
+EIGH_TOL = 1e-5  # the small-eigh kernel's eigenvalues against eigh, float32, relative
+EIGH_SUBSPACE_TOL = 1e-4  # its eigenvector clusters' projectors against eigh's
+EIGH_GAP = 1e-2  # eigenvalues closer than this, relative to the largest, form one cluster
+# float32 products outside the tensor cores (the Jacobi kernel's rotations)
+PEAK_F32_SIMT_FLOPS = 67e12
+
+
+def cs_report(item: str, **fields) -> None:
+    """One JSON line of the captured-solver phase."""
+    print(json.dumps({"captured_solver_phase": item, **fields}))
+
+
+def chunked_loop_of(A):
+    """The one chunked loop cached on operator ``A``."""
+    from curvlinops_tpu_torch.utils.graphs import ChunkedLoop
+
+    loops = [p for p in A._program_cache[1].values() if isinstance(p, ChunkedLoop)]
+    if len(loops) != 1:
+        raise RuntimeError(f"expected one cached chunked loop on {A}, found {len(loops)}")
+    return loops[0]
+
+
+def uncaptured(A):
+    """``A``'s products behind an operator that no program captures: a
+    series or recurrence over it runs eagerly."""
+    from curvlinops_tpu_torch.ops.base import LinearOperator
+
+    class Uncaptured(LinearOperator):
+        def _matmat(self, M):
+            return A._matmat(M)
+
+    op = Uncaptured(A.in_spec, A.out_spec)
+    op.SELF_ADJOINT = A.SELF_ADJOINT
+    return op
+
+
+def stop_tolerance(history, chunk: int) -> tuple[float, int]:
+    """``(tol, t)``: a relative tolerance at which a solve with this
+    residual history (entry 0 the right-hand side's norm) first meets its
+    test at iteration ``t``, the first from ``CS_STOP_FROM`` (else from 1)
+    off a chunk's end whose residual lies below every earlier one (the
+    geometric mean of the two sets the threshold)."""
+    h = [float(x) for x in history]
+    for t in [*range(CS_STOP_FROM, len(h)), *range(1, CS_STOP_FROM)]:
+        if t % chunk and h[t] < min(h[:t]):
+            return math.sqrt(h[t] * min(h[:t])) / h[0], t
+    raise RuntimeError(f"no iteration off a chunk's end to stop at in {h}")
+
+
+def cluster_projector_error(w, V, w_ref, V_ref, gap: float) -> float:
+    """The largest Frobenius distance between the spectral projectors of a
+    cluster (consecutive eigenvalues of ``w_ref`` closer than ``gap``)."""
+    worst, start = 0.0, 0
+    for i in range(1, len(w_ref) + 1):
+        if i == len(w_ref) or float(w_ref[i - 1] - w_ref[i]) > gap:
+            P = V[:, start:i] @ V[:, start:i].T
+            P_ref = V_ref[:, start:i] @ V_ref[:, start:i].T
+            worst, start = max(worst, float((P - P_ref).norm())), i
+    return worst
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms inside (its default weight-gradient
+    kernels sum with atomics: two replays of one graph differ, and float32
+    CG amplifies that past 1e-4 within 20 iterations). Every cached program
+    is dropped on entry and on exit, so no graph captured with the other
+    algorithms replays inside, nor one captured inside after it."""
+    from curvlinops_tpu_torch.ops.base import LinearOperator
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    LinearOperator.invalidate_traced(None)  # global: it reads no operator
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+        LinearOperator.invalidate_traced(None)
+
+
+def captured_solver_pair(torch, label: str, make, smi: str) -> dict:
+    """A solve through its captured program against the same solve run
+    eagerly; ``make()`` returns the two as closures over fresh operators
+    (``captured()`` gives the solution, its info and the operator holding
+    the loop; ``eager()`` the solution and info). With cuDNN's default
+    algorithms: the first captured call (warm-up, capture, replays), warm
+    calls and eager ones by host clock ending in a synchronize, the
+    capture's seconds and pool, the busy share of one profiled warm call,
+    and the two results' distance (warm and eager: the mean of two calls
+    each, alternated); then the distance of a fresh pair with cuDNN's
+    deterministic algorithms, where only the capture differs."""
+    captured, eager = make()
+    (x, info, holder), first_ms = timed(torch, captured)
+    loop = chunked_loop_of(holder)
+    times = {captured: [], eager: []}
+    for fn in (captured, eager, eager, captured):  # alternated
+        out, t = timed(torch, fn)
+        times[fn].append(t)
+        if fn is captured:
+            x, info, _ = out
+        else:
+            x_e, info_e = out
+    ms, eager_ms = (statistics.mean(times[fn]) for fn in (captured, eager))
+    busy = device_profile(torch, f"{label}, captured", lambda: captured(), top=0, warm=False)
+    default_err = rel_err(flat(x), flat(x_e))
+    del x, x_e
+    with deterministic_cudnn(torch):
+        captured, eager = make()
+        (x, info_d, _), (x_e, info_de) = captured(), eager()
+    k = info["iterations"]
+    before, after = loop.reserved_bytes
+    row = dict(iterations=k, eager_iterations=info_e["iterations"],
+               deterministic_iterations=[info_d["iterations"], info_de["iterations"]],
+               deterministic_host_reads=info_d["host_reads"],
+               host_reads=info["host_reads"], eager_host_reads=info_e["host_reads"],
+               ms_per_iteration=ms / k, eager_ms_per_iteration=eager_ms / info_e["iterations"],
+               first_call_ms=first_ms, capture_s=loop.capture_seconds,
+               pool_gib=(after - before) / 2**30, busy_captured=busy,
+               rel_err=rel_err(flat(x), flat(x_e)), rel_err_default_algorithms=default_err,
+               card=smi)
+    cs_report(label, **row)
+    return row
+
+
+def captured_solver_phases(torch, dev, smi: str) -> dict:
+    """CG (plain and preconditioned by KFAC's damped inverse), MINRES, LSMR
+    and LOBPCG (A13) on ResNet-18 (B=512 resident as one batch), each as a
+    captured chunked loop against the same solve run eagerly; the Neumann
+    series and fast Lanczos over KFAC's inverse, captured; the small-eigh
+    kernel against ``torch.linalg.eigh`` on LOBPCG's own Gram matrices.
+    float32, TF32 off, every gate fatal. Returns the conv kernel's launches
+    (KFAC's build) and the small-eigh kernel's entry for the port's own
+    kernels line."""
+    from curvlinops_tpu_torch import (
+        CGInverseLinearOperator,
+        GGNLinearOperator,
+        HessianLinearOperator,
+        IdentityLinearOperator,
+        JacobianLinearOperator,
+        KFACLinearOperator,
+        LSMRInverseLinearOperator,
+        MINRESInverseLinearOperator,
+        NeumannInverseLinearOperator,
+        topk_eigenpairs,
+    )
+    from curvlinops_tpu_torch.kfac import kernels
+    from curvlinops_tpu_torch.models.resnet import cifar10_resnet18
+    from curvlinops_tpu_torch.solvers import cg as tcg
+    from curvlinops_tpu_torch.solvers import eigsh as teigsh
+    from curvlinops_tpu_torch.solvers import lanczos as tl
+    from curvlinops_tpu_torch.solvers import lsmr as tlsmr
+    from curvlinops_tpu_torch.solvers import minres as tminres
+    from curvlinops_tpu_torch.solvers import small_eigh as se
+    from curvlinops_tpu_torch.utils import graphs
+    from curvlinops_tpu_torch.utils.graphs import EagerLoop
+
+    lam, iters, chunk = SOLVER_DAMPING, SOLVER_ITERS, graphs.CHUNK
+    problem = cifar10_resnet18(batch_size=BATCH, seed=0, device=dev)
+    kernels.conv_input_covariance.launches = 0
+    kfac, build_ms = timed(torch, lambda: KFACLinearOperator(
+        problem.model, problem.loss_fn, problem.kfac_params, problem.data, fisher_type="mc",
+        check_deterministic=False))
+    conv_launches = kernels.conv_input_covariance.launches
+    P = kfac.inverse(damping=lam)
+    cs_report("KFAC build (MC) and inverse", build_ms=build_ms, conv_kernel_launches=conv_launches,
+              inverse_capturable=P.capturable, card=smi)
+    if conv_launches != 19 or not P.capturable:
+        raise RuntimeError(f"KFAC: {conv_launches} conv launches (expected 19), inverse "
+                           f"capturable {P.capturable}")
+    G = GGNLinearOperator(problem.model, problem.loss_fn, problem.kfac_params, problem.data,
+                          check_deterministic=False)
+    A = G + lam * IdentityLinearOperator(G.in_spec)
+    b = {n: g.detach() for n, g in G.gradient_and_loss()[0].items()}
+    print(f"captured solvers, ResNet-18/CIFAR-10, batch {BATCH} resident, GGN on KFAC's "
+          f"{G.shape[0]} parameters + {lam} I, chunk {chunk}, float32, TF32 off [{smi}]")
+
+    def cols(tree: dict) -> dict:  # a column axis for the solver functions
+        return {n: t[..., None] for n, t in tree.items()}
+
+    def uncols(tree: dict) -> dict:
+        return {n: t[..., 0] for n, t in tree.items()}
+
+    # ---- CG, plain and preconditioned; the tolerance run; chunk lengths -- #
+    # each make(...) returns (captured, eager): the captured closure's
+    # operator is built once, so its second call replays the first's capture
+    def cg(pre, maxiter, tol):
+        inv = CGInverseLinearOperator(A, maxiter=maxiter, tol=tol, atol=0.0, preconditioner=pre)
+
+        def captured():
+            return inv @ b, inv.last_info, inv
+
+        def eager():
+            loop = EagerLoop()
+            x, info = tcg.batched_cg(A._matmat, cols(b), maxiter=maxiter, tol=tol, atol=0.0,
+                                     preconditioner=pre._matmat if pre else None, loop=loop)
+            return uncols(x), {**info, "host_reads": loop.host_reads}
+
+        return captured, eager
+
+    def minres(maxiter, tol):
+        inv = MINRESInverseLinearOperator(AH, maxiter=maxiter, tol=tol, atol=0.0)
+
+        def captured():
+            return inv @ v, inv.last_info, inv
+
+        def eager():
+            loop = EagerLoop()
+            x, info = tminres.batched_minres(AH._matmat, cols(v), maxiter=maxiter, tol=tol,
+                                             atol=0.0, loop=loop)
+            return uncols(x), {**info, "host_reads": loop.host_reads}
+
+        return captured, eager
+
+    def lsmr(maxiter, tol):
+        inv = LSMRInverseLinearOperator(J, maxiter=maxiter, atol=0.0, btol=tol)
+
+        def captured():
+            return inv @ w.reshape(J.out_spec.shape), inv.lsmr_info, inv
+
+        def eager():
+            loop = EagerLoop()
+            x, info = tlsmr.batched_lsmr(J._matmat, JT._matmat, w.reshape(*J.out_spec.shape, 1),
+                                         maxiter=maxiter, atol=0.0, btol=tol, loop=loop)
+            return uncols(x), {**info, "host_reads": loop.host_reads}
+
+        return captured, eager
+
+    def krylov(name: str, make, history_key: str | None) -> None:
+        """The solve at ``iters`` iterations and, with a history key, at a
+        tolerance that stops it off a chunk's end."""
+        row = captured_solver_pair(torch, f"{name}, {iters} iterations",
+                                   lambda: make(iters, 0.0), smi)
+        if not (row["rel_err"] <= CS_TOL and row["iterations"] == row["eager_iterations"] == iters
+                and row["host_reads"] == math.ceil(iters / chunk)):
+            raise RuntimeError(f"captured {name} against eager: {row}")
+        if history_key is None:
+            return
+        with deterministic_cudnn(torch):
+            _, info = make(iters, 0.0)[1]()
+        tol, t = stop_tolerance(info[history_key][:, 0], chunk)
+        stop = captured_solver_pair(torch, f"{name}, tol {tol:.3e} (stops at {t})",
+                                    lambda: make(iters, tol), smi)
+        if not (stop["deterministic_iterations"] == [t, t]
+                and stop["deterministic_host_reads"] <= math.ceil(t / chunk) + 1
+                and stop["host_reads"] <= math.ceil(stop["iterations"] / chunk) + 1):
+            raise RuntimeError(f"captured {name} at a tolerance: {stop} (expected {t} iterations)")
+
+    # plain CG's residual on this system never falls below its start in 20
+    # iterations (on the H100: 34.0, then 43.7-56.3), so the
+    # tolerance run is the preconditioned one's, whose residual falls
+    krylov("CG", lambda m, tol: cg(None, m, tol), None)
+    krylov("CG + KFAC inverse", lambda m, tol: cg(P, m, tol), "residual_history")
+    for c in CS_CHUNKS:  # the chunk length's cost: capture, pool and time per iteration
+        graphs.CHUNK = c
+        try:
+            captured, _ = cg(None, 16, 0.0)
+            (_, _, holder), first_ms = timed(torch, captured)
+            (_, info, _), ms = timed(torch, captured)
+        finally:
+            graphs.CHUNK = chunk
+        loop = chunked_loop_of(holder)
+        cs_report(f"CG, 16 iterations, chunk {c}", ms_per_iteration=ms / 16,
+                  host_reads=info["host_reads"], first_call_ms=first_ms,
+                  capture_s=loop.capture_seconds,
+                  pool_gib=(loop.reserved_bytes[1] - loop.reserved_bytes[0]) / 2**30, card=smi)
+        del holder, loop
+
+    # ---- LOBPCG, top 4 of the GGN; its Gram matrices for the kernel ------ #
+    X0 = tl.start_vector(G, torch.Generator().manual_seed(1), (G.shape[1], 4))
+    se.small_eigh.launches = 0
+    (evals, U), first_ms = timed(torch, lambda: topk_eigenpairs(
+        G, k=4, maxiter=iters, tol=LOBPCG_TOL, X0=X0))
+    launches = se.small_eigh.launches
+    loop = chunked_loop_of(G)
+    (evals, U), ms = timed(torch, lambda: topk_eigenpairs(G, k=4, maxiter=iters, tol=LOBPCG_TOL,
+                                                           X0=X0))
+    grams, kernel = {}, teigsh.small_eigh
+
+    def recording(M, sweeps=None):  # the eager run's small eigenproblems, by size
+        grams.setdefault(M.shape[-1], []).append(M.detach().clone())
+        return kernel(M, sweeps)
+
+    teigsh.small_eigh = recording
+    try:  # topk_eigenpairs(capture=False)'s loop, with its iteration count
+        (evals_e, U_e, iters_e), eager_ms = timed(torch, lambda: teigsh.lobpcg_standard(
+            lambda V: G @ V, X0, m=iters, tol=LOBPCG_TOL, loop=EagerLoop()))
+    finally:
+        teigsh.small_eigh = kernel
+    order = torch.argsort(evals_e, descending=True)
+    evals_e, U_e = evals_e[order], U_e[:, order]
+    busy = device_profile(torch, "LOBPCG k=4, captured", lambda: topk_eigenpairs(
+        G, k=4, maxiter=iters, tol=LOBPCG_TOL, X0=X0), top=0, warm=False)
+    evals_l = evals.tolist()
+    ortho = float((U.T @ U - torch.eye(4, device=dev)).abs().max())
+    rel_res = ((G @ U - U * evals).norm(dim=0) / evals.abs()).tolist()
+    subspace = float((U @ (U.T @ U_e) - U_e).norm() / U_e.norm())
+    before, after = loop.reserved_bytes
+    lob = dict(k=4, iterations=loop.iterations, host_reads=loop.host_reads,
+               eager_iterations=iters_e, ms_per_iteration=ms / loop.iterations,
+               eager_ms_per_iteration=eager_ms / iters_e,
+               first_call_ms=first_ms, capture_s=loop.capture_seconds,
+               pool_gib=(after - before) / 2**30, busy_captured=busy,
+               eigenvalues=evals_l, eager_eigenvalues=evals_e.tolist(),
+               rel_err=rel_err(evals, evals_e), subspace_vs_eager=subspace,
+               orthonormality=ortho, relative_residuals=rel_res,
+               small_eigh_launches=launches, card=smi)
+    cs_report(f"LOBPCG, k=4, maxiter {iters}", **lob)
+    if not (lob["rel_err"] <= CS_TOL and evals_l == sorted(evals_l, reverse=True)
+            and min(evals_l) >= 0 and ortho <= ORTHO_TOL and launches > 0
+            and lob["iterations"] == iters_e
+            and lob["host_reads"] <= math.ceil(iters_e / chunk) + 1):
+        raise RuntimeError(f"captured LOBPCG: {lob}")
+
+    # ---- the small-eigh kernel on those matrices ------------------------ #
+    worst_w = worst_sub = worst_abs = 0.0
+    for n, mats in grams.items():
+        for M in mats[:4]:
+            w_k, V_k = se.small_eigh(M)
+            w_p, V_p = se.small_eigh_plain(M)
+            scale = float(w_p.abs().max())
+            worst_w = max(worst_w, rel_err(w_k, w_p))
+            worst_abs = max(worst_abs, float((w_k - w_p).abs().max()))
+            worst_sub = max(worst_sub, cluster_projector_error(
+                w_k.double(), V_k.double(), w_p.double(), V_p.double(), EIGH_GAP * scale))
+    M = grams[12][0]
+    sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+    se.small_eigh(M[None], sweeps)
+    n_sweeps = int(sweeps[0])
+    k_ms, p_ms = alternated_ms(lambda: se.small_eigh_plain(M), lambda: se.small_eigh(M), torch)
+    lib_ms = time_ms(lambda: torch.linalg.eigh(M), torch)
+    # Jacobi: per sweep n - 1 rounds of n / 2 rotations, each 18 n flops on
+    # two rows and two columns of A and V; bytes: A read, w and V written
+    ops_ms = 9 * 12**3 * n_sweeps / PEAK_F32_SIMT_FLOPS * 1e3
+    bytes_ms = (2 * 12**2 + 12) * 4 / PEAK_BYTES_PER_S * 1e3
+    bound_ms, bound_by = max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+    entry = {"name": "small_eigh", "route": "cuda",
+             "source": "curvlinops_tpu_torch/solvers/csrc/small_eigh.cu", "replaces": None,
+             "launches": launches, "max_abs_err": worst_abs, "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    cs_report("small_eigh kernel against torch.linalg.eigh, LOBPCG's matrices",
+              sizes={n: len(m) for n, m in grams.items()}, eigenvalues_rel_err=worst_w,
+              tol=EIGH_TOL, subspace_err=worst_sub, subspace_tol=EIGH_SUBSPACE_TOL,
+              sweeps_12=n_sweeps, kernel_ms_12=k_ms, plain_ms_12=p_ms, eigh_ms_12=lib_ms,
+              timing="CUDA events, median of 20, alternated", card=smi)
+    if not (worst_w <= EIGH_TOL and worst_sub <= EIGH_SUBSPACE_TOL and 12 in grams and 4 in grams):
+        raise RuntimeError(f"small_eigh against eigh: eigenvalues {worst_w}, subspaces {worst_sub}")
+    del U, U_e, grams, loop
+    torch.cuda.empty_cache()
+
+    # ---- Neumann and fast Lanczos over KFAC's inverse, captured --------- #
+    v0 = torch.randn(P.shape[1], generator=torch.Generator(dev).manual_seed(2), device=dev)
+    (ritz, _), lanczos_first_ms = timed(torch, lambda: tl.fast_lanczos(P, CS_SERIES, v0=v0))
+    (ritz, _), lanczos_ms = timed(torch, lambda: tl.fast_lanczos(P, CS_SERIES, v0=v0))
+    (ritz_e, _), lanczos_eager_ms = timed(torch, lambda: tl.fast_lanczos(uncaptured(P), CS_SERIES,
+                                                                          v0=v0))
+    (program,) = [p for p in captured_programs(P) if p.name.startswith("Lanczos")]
+    l_err = rel_err(ritz, ritz_e)
+    cs_report(f"fast Lanczos, {CS_SERIES} steps, KFAC inverse", rel_err=l_err, tol=CS_TOL,
+              top_ritz=float(ritz[-1]), first_call_ms=lanczos_first_ms, captured_ms=lanczos_ms,
+              eager_ms=lanczos_eager_ms, capture_s=program.capture_seconds,
+              pool_gib=(program.reserved_bytes[1] - program.reserved_bytes[0]) / 2**30, card=smi)
+    scale = 1.0 / float(ritz[-1])
+    inv, inv_e = (NeumannInverseLinearOperator(op, num_terms=CS_SERIES, scale=scale)
+                  for op in (P, uncaptured(P)))
+    x, neumann_first_ms = timed(torch, lambda: inv @ b)
+    x, neumann_ms = timed(torch, lambda: inv @ b)
+    x_e, neumann_eager_ms = timed(torch, lambda: inv_e @ b)
+    (program,) = captured_programs(inv)
+    n_err = rel_err(flat(x), flat(x_e))
+    busy = device_profile(torch, "Neumann over KFAC's inverse, captured", lambda: inv @ b, top=0,
+                          warm=False)
+    cs_report(f"Neumann series, {CS_SERIES} terms, KFAC inverse", rel_err=n_err, tol=CS_TOL,
+              scale=scale, first_call_ms=neumann_first_ms, captured_ms=neumann_ms,
+              eager_ms=neumann_eager_ms, capture_s=program.capture_seconds,
+              pool_gib=(program.reserved_bytes[1] - program.reserved_bytes[0]) / 2**30,
+              busy_captured=busy, card=smi)
+    if not (l_err <= CS_TOL and n_err <= CS_TOL and finite_tree(x)
+            and "_program_cache" not in inv_e.__dict__):
+        raise RuntimeError(f"captured Lanczos / Neumann over KFAC's inverse: {l_err}, {n_err}")
+    del G, A, b, kfac, P, inv, inv_e, x, x_e, program
+    torch.cuda.empty_cache()
+
+    # ---- MINRES on the Hessian + lambda I, LSMR on the Jacobian ---------- #
+    H = HessianLinearOperator(problem.model, problem.loss_fn, problem.params, problem.data,
+                              check_deterministic=False)
+    AH = H + lam * IdentityLinearOperator(H.in_spec)
+    v = {n: torch.randn(t.shape, generator=torch.Generator(dev).manual_seed(3), device=dev)
+         for n, t in problem.params.items()}
+    krylov("MINRES", minres, "residual_history")
+    del H, AH, v
+    torch.cuda.empty_cache()
+    J = JacobianLinearOperator(problem.model, problem.params, problem.data,
+                               check_deterministic=False)
+    JT = J.adjoint()
+    w = torch.randn(J.shape[0], generator=torch.Generator(dev).manual_seed(4), device=dev)
+    print(f"  LSMR on the Jacobian {J.shape[1]} -> {J.shape[0]}")
+    krylov("LSMR", lsmr, "normr_history")
+    del J, JT, w, problem
+    torch.cuda.empty_cache()
+    return {"launches": {"conv_input_covariance": conv_launches}, "small_eigh": entry}
 
 
 if __name__ == "__main__":

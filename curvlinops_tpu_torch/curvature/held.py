@@ -464,6 +464,12 @@ class HeldLinearizationOperator(LinearOperator):
         if not self._held:
             raise ValueError("Empty dataset: nothing to hold.")
 
+    @property
+    def capturable(self) -> bool:
+        """Whether a program may capture the products inline: the held
+        products read nothing to the host, and no sum over a mesh follows."""
+        return self._base._mesh is None
+
     @torch.no_grad()
     def _matmat(self, M: Any) -> Any:
         maxcols, shards = self._base._max_vmap_columns, self._base._shards

@@ -5,7 +5,10 @@ parameter space to the stacked prediction space ``[N, *out]``: per batch, a
 ``torch.func.jvp`` mapped over the columns gives the batch's block of rows,
 and the blocks are concatenated. ``J^T`` slices its input rows per batch
 and adds the pullbacks of one ``torch.func.vjp`` per batch. Both need a
-fixed data order, and each is the other's adjoint. Under a mesh, ``J``
+fixed data order, and each is the other's adjoint. Where the operator holds
+its batches on the device (``fuse_batches``, as the curvature operators
+do), both read them from there, so a product touches no loader and a
+solve over them (LSMR) can be captured. Under a mesh, ``J``
 gathers each batch's rows from the processes that computed them, and
 ``J^T`` pulls back this process's rows of each batch and sums over the
 mesh's data axis.
@@ -17,7 +20,7 @@ from typing import Any
 
 import torch
 
-from curvlinops_tpu_torch.risk import EmpiricalRiskOperator, default_batch_size
+from curvlinops_tpu_torch.risk import EmpiricalRiskOperator, _held_batches, default_batch_size
 from curvlinops_tpu_torch.utils.flatten import TensorSpec, spec_of, tree_add, vmap_columns
 from curvlinops_tpu_torch.utils.misc import as_model_fn
 
@@ -29,6 +32,13 @@ def _num_data(data, kw: dict) -> int:
         bs_fn = kw.get("batch_size_fn") or default_batch_size
         num_data = sum(bs_fn(X) for X, _ in data)
     return num_data
+
+
+def _batches(op: EmpiricalRiskOperator, desc: str):
+    """``(X, y, c, generator or tape)`` of this process's batches: the held
+    ones of the fused state where the operator has one, else streamed."""
+    state = op._fused_state()
+    return _held_batches(state) if state is not None else op._shard_loop(desc=desc)
 
 
 def _prediction_spec(model, params, data, num_data: int) -> TensorSpec:
@@ -54,7 +64,7 @@ class JacobianLinearOperator(EmpiricalRiskOperator):
     def _matmat(self, M: Any) -> Any:
         model_fn, params = self._model_fn, self._params
         blocks = []
-        for X, _, _, _ in self._shard_loop(desc="jacobian"):
+        for X, _, _, _ in _batches(self, "jacobian"):
 
             def jvp_one(v, X=X):
                 return torch.func.jvp(lambda p: model_fn(p, X), (params,), (v,))[1]
@@ -93,7 +103,7 @@ class TransposedJacobianLinearOperator(EmpiricalRiskOperator):
     def _matmat(self, M: Any) -> Any:
         index, count = self._shards.index, self._shards.count
         out, offset = None, 0
-        for X, _, _, _ in self._shard_loop(desc="jacobian_t"):
+        for X, _, _, _ in _batches(self, "jacobian_t"):
             B = self._batch_size_fn(X)  # this process's rows of the batch
             _, vjp_fn = torch.func.vjp(lambda p: self._model_fn(p, X), self._params)
             start = offset + index * B

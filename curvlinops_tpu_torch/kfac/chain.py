@@ -123,7 +123,7 @@ def grouped_kron_inverse(
         else:
             d = max(damping, min_damping) if use_heuristic_damping else damping
             for fi, S in enumerate(fs):
-                damps[(gi, fi)] = torch.full(S.shape[:-2], d, device=device)
+                damps[(gi, fi)] = torch.full(S.shape[:-2], d, dtype=S.dtype, device=device)
     factors = {(gi, fi): S for gi, (_, fs) in blocks.items() for fi, S in enumerate(fs)}
     by_shape: dict = {}
     for key in sorted(factors):
@@ -264,6 +264,9 @@ class KroneckerChainOperator(ChainLinearOperator):
     """
 
     SELF_ADJOINT = True
+    # its own _matmat: reshapes and products of the blocks' tensors, the
+    # same on every process (the factors are replicated), no host read
+    capturable = True
 
     def __init__(
         self,

@@ -31,6 +31,10 @@ class BlockDiagonalLinearOperator(LinearOperator):
     def __len__(self) -> int:  # noqa: D105
         return len(self.blocks)
 
+    @property
+    def capturable(self) -> bool:  # noqa: D102
+        return all(b.capturable for b in self.blocks)
+
     def __getitem__(self, idx: int) -> LinearOperator:  # noqa: D105
         return self.blocks[idx]
 

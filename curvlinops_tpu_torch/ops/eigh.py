@@ -34,6 +34,10 @@ class EighDecomposedLinearOperator(LinearOperator):
         self._Q_adj = None  # lazily cached adjoint of an operator Q
 
     @property
+    def capturable(self) -> bool:  # noqa: D102
+        return not isinstance(self._Q, LinearOperator) or self._Q.capturable
+
+    @property
     def eigenvalues(self) -> torch.Tensor:
         """The eigenvalues."""
         return self._eigenvalues

@@ -1,16 +1,21 @@
 """Inverse linear operators: CG, MINRES, LSMR and truncated Neumann series.
 
 PyTorch counterpart of ``curvlinops_tpu/ops/inverse.py``. The iterations
-run on the device (:mod:`curvlinops_tpu_torch.solvers`). The Krylov solves
-(CG, MINRES, LSMR) are Python loops that apply the operator's ``_matmat``
-once per step and read one host scalar per iteration (their stopping
-test), where the JAX package compiles each solve into one XLA program. The
-Neumann series reads nothing until its end: the whole series runs as one
-cached :class:`~curvlinops_tpu_torch.utils.graphs.CapturedProgram` per
-number of columns and dtype (the JAX package's ``fori_loop`` program), and
-its divergence flag is read once, after the replay.
-``set_*_hyperparameters`` changes the next solve and drops the cached
-programs (:meth:`~curvlinops_tpu_torch.ops.base.LinearOperator.invalidate_traced`).
+run on the device (:mod:`curvlinops_tpu_torch.solvers`). Where the JAX
+package compiles each Krylov solve (CG, MINRES, LSMR) into one XLA
+program, here a solve over ``capturable`` operators (``A``, the
+preconditioner, ``A``'s adjoint for LSMR) runs as one cached
+:class:`~curvlinops_tpu_torch.utils.graphs.ChunkedLoop` per number of
+columns, hyperparameters and dtype: a captured chunk of masked iterations,
+replayed with one host read a chunk; over any other operator the solve runs
+eagerly, reading its stopping flag once an iteration. Each solve's ``info``
+adds ``host_reads``, the flag reads it made. The Neumann series reads
+nothing until its end: over ``capturable`` operators the whole series runs
+as one cached :class:`~curvlinops_tpu_torch.utils.graphs.CapturedProgram`
+(the JAX package's ``fori_loop`` program), and its divergence flag is read
+once, after the replay. ``set_*_hyperparameters`` changes the next solve
+and drops the cached programs
+(:meth:`~curvlinops_tpu_torch.ops.base.LinearOperator.invalidate_traced`).
 
 Example:
     >>> import torch
@@ -35,7 +40,12 @@ from curvlinops_tpu_torch.ops.base import LinearOperator, cached_program, progra
 from curvlinops_tpu_torch.solvers.cg import batched_cg, flatten_columns, on_flat
 from curvlinops_tpu_torch.solvers.lsmr import batched_lsmr
 from curvlinops_tpu_torch.solvers.minres import batched_minres
-from curvlinops_tpu_torch.utils.graphs import CapturedProgram
+from curvlinops_tpu_torch.utils.graphs import (
+    SOLVER_REMEDY,
+    CapturedProgram,
+    ChunkedLoop,
+    EagerLoop,
+)
 
 
 def _set(op: LinearOperator, names: tuple, kwargs: dict, solver: str) -> None:
@@ -47,6 +57,19 @@ def _set(op: LinearOperator, names: tuple, kwargs: dict, solver: str) -> None:
     if kwargs:
         raise ValueError(f"Unknown {solver} hyperparameters: {sorted(kwargs)}.")
     op.invalidate_traced()
+
+
+def _loop(op: LinearOperator, M: Any, key: tuple, operators: tuple, name: str):
+    """The solve's loop: the :class:`ChunkedLoop` cached on ``op`` under
+    ``key`` + ``(ncols, dtype)`` when every operator of ``operators`` is
+    ``capturable``, else a fresh :class:`EagerLoop`."""
+    if not all(A is None or A.capturable for A in operators):
+        return EagerLoop()
+    leaf = pytree.tree_leaves(M)[0]
+    return cached_program(
+        op, (*key, leaf.shape[-1], leaf.dtype),
+        lambda: ChunkedLoop(op.device, name, program_pool(op, op.device)),
+    )
 
 
 def _require_square(A: LinearOperator) -> None:
@@ -76,7 +99,7 @@ class CGInverseLinearOperator(LinearOperator):
 
     @property
     def last_info(self) -> dict | None:
-        """Iteration counts and residual norms of the last solve."""
+        """Iteration counts, residual norms and host reads of the last solve."""
         return self._last_info
 
     def set_cg_hyperparameters(self, **kwargs) -> None:
@@ -85,10 +108,13 @@ class CGInverseLinearOperator(LinearOperator):
 
     def _matmat(self, M: Any) -> Any:
         P = self._preconditioner
-        X, self._last_info = batched_cg(
+        loop = _loop(self, M, ("cg", self._maxiter, self._tol, self._atol), (self._A, P),
+                     "the CG solve")
+        X, info = batched_cg(
             self._A._matmat, M, maxiter=self._maxiter, tol=self._tol, atol=self._atol,
-            preconditioner=P._matmat if P is not None else None,
+            preconditioner=P._matmat if P is not None else None, loop=loop,
         )
+        self._last_info = {**info, "host_reads": loop.host_reads}
         return X
 
     def _adjoint(self) -> "CGInverseLinearOperator":
@@ -126,7 +152,7 @@ class MINRESInverseLinearOperator(LinearOperator):
 
     @property
     def last_info(self) -> dict | None:
-        """Iteration counts and residual-norm estimates of the last solve."""
+        """Iteration counts, residual-norm estimates and host reads of the last solve."""
         return self._last_info
 
     def set_minres_hyperparameters(self, **kwargs) -> None:
@@ -134,9 +160,12 @@ class MINRESInverseLinearOperator(LinearOperator):
         _set(self, ("maxiter", "tol", "atol"), kwargs, "MINRES")
 
     def _matmat(self, M: Any) -> Any:
-        X, self._last_info = batched_minres(
-            self._A._matmat, M, maxiter=self._maxiter, tol=self._tol, atol=self._atol
+        loop = _loop(self, M, ("minres", self._maxiter, self._tol, self._atol), (self._A,),
+                     "the MINRES solve")
+        X, info = batched_minres(
+            self._A._matmat, M, maxiter=self._maxiter, tol=self._tol, atol=self._atol, loop=loop
         )
+        self._last_info = {**info, "host_reads": loop.host_reads}
         return X
 
 
@@ -164,7 +193,7 @@ class LSMRInverseLinearOperator(LinearOperator):
 
     @property
     def lsmr_info(self) -> dict | None:
-        """Iteration count and ``normr`` / ``normar`` of the last solve."""
+        """Iteration count, ``normr`` / ``normar`` and host reads of the last solve."""
         return self._lsmr_info
 
     def set_lsmr_hyperparameters(self, **kwargs) -> None:
@@ -172,10 +201,13 @@ class LSMRInverseLinearOperator(LinearOperator):
         _set(self, ("damp", "maxiter", "atol", "btol"), kwargs, "LSMR")
 
     def _matmat(self, M: Any) -> Any:
-        X, self._lsmr_info = batched_lsmr(
+        loop = _loop(self, M, ("lsmr", self._damp, self._maxiter, self._atol, self._btol),
+                     (self._A, self._A_adj), "the LSMR solve")
+        X, info = batched_lsmr(
             self._A._matmat, self._A_adj._matmat, M, damp=self._damp,
-            maxiter=self._maxiter, atol=self._atol, btol=self._btol,
+            maxiter=self._maxiter, atol=self._atol, btol=self._btol, loop=loop,
         )
+        self._lsmr_info = {**info, "host_reads": loop.host_reads}
         return X
 
     def _adjoint(self) -> "LSMRInverseLinearOperator":
@@ -263,7 +295,7 @@ class NeumannInverseLinearOperator(LinearOperator):
                 self, ("neumann", leaf.shape[-1], leaf.dtype),
                 lambda: CapturedProgram(
                     self._series(), self.device, "the Neumann series",
-                    program_pool(self, self.device),
+                    program_pool(self, self.device), SOLVER_REMEDY,
                 ),
             )
         else:  # A or P streams, holds a mesh or is not marked capturable

@@ -86,6 +86,8 @@ def heuristic_pi(mean1: float, mean2: float) -> float:
 class KroneckerProductLinearOperator(LinearOperator):
     """Lazy ``S_1 (x) S_2 (x) ... (x) S_k`` over flat vectors."""
 
+    capturable = True
+
     def __init__(self, *factors: torch.Tensor):
         self._factors = list(factors)
         if not self._factors or any(S.ndim != 2 for S in self._factors):
@@ -201,6 +203,8 @@ class EmbeddingKroneckerOperator(LinearOperator):
     factor.
     """
 
+    capturable = True
+
     def __init__(self, G: torch.Tensor, d: torch.Tensor):
         self._G, self._d = torch.as_tensor(G), torch.as_tensor(d)
         if self._G.ndim != 2 or self._d.ndim != 1:
@@ -303,6 +307,7 @@ class EmbeddingEighOperator(LinearOperator):
     """
 
     SELF_ADJOINT = True
+    capturable = True
 
     def __init__(self, eigenvalues: torch.Tensor, Q: torch.Tensor):
         self._lam, self._Q = torch.as_tensor(eigenvalues), torch.as_tensor(Q)  # [C, V], [C, C]

@@ -37,6 +37,8 @@ def _flat_spec(size: int, like: torch.Tensor) -> TensorSpec:
 class StackedKroneckerOperator(LinearOperator):
     """``blockdiag_l ( S_1[l] (x) ... (x) S_k[l] )`` over flat vectors."""
 
+    capturable = True
+
     def __init__(self, *factors: torch.Tensor):
         self._factors = [torch.as_tensor(S) for S in factors]
         if not self._factors or any(S.ndim != 3 for S in self._factors):
@@ -135,6 +137,7 @@ class StackedEighOperator(LinearOperator):
     """``blockdiag_l ( Q[l] diag(lam[l]) Q[l]^T )`` with Kronecker ``Q[l]``."""
 
     SELF_ADJOINT = True
+    capturable = True
 
     def __init__(self, eigenvalues: torch.Tensor, q_factors: list[torch.Tensor]):
         self._lam = torch.as_tensor(eigenvalues)  # [L, D]

@@ -43,6 +43,10 @@ class SubmatrixLinearOperator(LinearOperator):
             TensorSpec((len(rows),), A.dtype, A.device),
         )
 
+    @property
+    def capturable(self) -> bool:  # noqa: D102
+        return self._A.capturable
+
     def _matmat(self, M: torch.Tensor) -> torch.Tensor:
         full = torch.zeros((self._A.shape[1], M.shape[-1]), dtype=M.dtype, device=M.device)
         full[self._col_idxs] = M

@@ -58,7 +58,7 @@ Differences from the JAX package:
   process takes the same branch. A fused program holds the process's loop;
   the sum over the mesh runs after its replay, outside the graph, so a
   Neumann series or Lanczos recurrence over a mesh operator runs eagerly
-  (:attr:`CurvatureLinearOperator.capturable`), replaying the fused loop
+  (:attr:`EmpiricalRiskOperator.capturable`), replaying the fused loop
   once a product.
 """
 
@@ -392,6 +392,17 @@ class EmpiricalRiskOperator(LinearOperator):
         ``M`` carries a trailing column axis on every leaf."""
         raise NotImplementedError
 
+    @property
+    def capturable(self) -> bool:
+        """Whether a program (a solve, a Neumann series, a Lanczos
+        recurrence) may capture the products inline: the batches are fused
+        (held on the device, their draws taped) and no sum over a mesh
+        follows. A streamed operator reads its loader (host copies, a
+        prefetch thread, fresh generators) and a mesh's ``all_reduce`` or
+        ``all_gather`` runs after each product, so a program over either
+        runs eagerly."""
+        return self._mesh is None and self._fused_state() is not None
+
     def _fused_state(self) -> tuple | None:
         """The held batches of the fused loop, or ``None`` to stream."""
         if self._progressbar or self.fuse_batches is False:
@@ -598,13 +609,3 @@ class EmpiricalRiskOperator(LinearOperator):
 
 class CurvatureLinearOperator(EmpiricalRiskOperator):
     """Square operators in parameter space (Hessian, GGN, Fisher, ...)."""
-
-    @property
-    def capturable(self) -> bool:
-        """Whether a Neumann or Lanczos program may capture the products
-        inline: the batches are fused (held on the device, their draws
-        taped) and no sum over a mesh follows. A streamed operator reads its
-        loader (host copies, a prefetch thread, fresh generators) and a
-        mesh's ``all_reduce`` runs after each product, so a program over
-        either runs eagerly."""
-        return self._mesh is None and self._fused_state() is not None

@@ -1,13 +1,16 @@
 """Batched preconditioned conjugate gradients on the device.
 
 PyTorch counterpart of ``curvlinops_tpu/solvers/cg.py``. The JAX package
-runs the solve as one ``lax.while_loop`` program; here it is a Python loop
-of eager operations that calls the operator once per iteration. Every
-column carries its own ``alpha`` and ``beta``, and all per-column state
-(the scalars, the residual norms, the active mask, the counts) stays on the
-device: the loop reads one boolean per iteration to the host, "is any
-column still active?". Converged columns freeze (their ``alpha`` is masked
-to zero) while the rest keep iterating.
+runs the solve as one ``lax.while_loop`` program; here the iteration is a
+step function on a tuple of device tensors, driven by a loop of
+:mod:`curvlinops_tpu_torch.utils.graphs`: eagerly (:class:`EagerLoop`, one
+host read of the flag "some column still active" before each iteration) or
+as a captured chunk of masked iterations replayed with one host read a
+chunk (:class:`ChunkedLoop`, which the inverse operators cache over
+``capturable`` operators). Every column carries its own ``alpha`` and
+``beta``, and all per-column state (the scalars, the residual norms, the
+counts, the residual history) stays on the device. Converged columns freeze
+(their ``alpha`` is masked to zero) while the rest keep iterating.
 
 The column trees are flattened once into ``[N, K]`` tensors, so an
 iteration's vector work is a few kernels whatever the tree's leaf count;
@@ -22,6 +25,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from curvlinops_tpu_torch.utils.flatten import TensorSpec, make_ravel_unravel_cols
+from curvlinops_tpu_torch.utils.graphs import ChunkedLoop, EagerLoop, record
 
 
 def flatten_columns(tree: Any) -> tuple[torch.Tensor, Callable, Callable]:
@@ -55,6 +59,31 @@ def safe(x: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
     return torch.where(bad, torch.ones_like(x), x)
 
 
+def cg_step(mv: Callable, mp: Callable) -> Callable:
+    """The PCG iteration on flat ``[N, K]`` state ``(X, R, P, rz, resid,
+    column counts, residual history)`` with the constant ``(threshold,)``,
+    as a loop step (:class:`~curvlinops_tpu_torch.utils.graphs.ChunkedLoop`)."""
+
+    def step(k, state: tuple, consts: tuple) -> tuple:
+        X, R, P, rz, resid, col_iters, history = state
+        (threshold,) = consts
+        active = resid > threshold
+        AP = mv(P)
+        pAp = col_dot(P, AP)
+        alpha = torch.where(active, rz / safe(pAp, pAp == 0), 0.0)
+        X = X + alpha * P
+        R = R - alpha * AP
+        Z = mp(R)
+        rz_new = col_dot(R, Z)
+        beta = torch.where(active, rz_new / safe(rz, rz == 0), 0.0)
+        P = Z + beta * P
+        resid = col_norm(R)
+        state = (X, R, P, rz_new, resid, col_iters + active, record(history, k, resid))
+        return state, (resid > threshold).any()
+
+    return step
+
+
 def batched_cg(
     matvec: Callable[[Any], Any],
     B: Any,
@@ -64,6 +93,7 @@ def batched_cg(
     tol: float = 1e-5,
     atol: float = 1e-8,
     preconditioner: Callable[[Any], Any] | None = None,
+    loop: ChunkedLoop | EagerLoop | None = None,
 ) -> tuple[Any, dict]:
     """Solve ``A X = B`` column-wise with PCG.
 
@@ -75,6 +105,8 @@ def batched_cg(
         tol: Relative residual tolerance (per column, vs ``||b||``).
         atol: Absolute residual tolerance floor.
         preconditioner: Approximate inverse of A on column trees.
+        loop: Drives the iterations (an :class:`EagerLoop` when ``None``);
+            its ``host_reads`` holds the solve's flag reads afterwards.
 
     Returns:
         ``(X, info)``: ``info`` has the iteration count (``iterations``:
@@ -93,33 +125,19 @@ def batched_cg(
     threshold = torch.clamp(tol * col_norm(b), min=atol)
     R = b - mv(X)
     Z = mp(R)
-    P = Z
     rz = col_dot(R, Z)
     resid = col_norm(R)
     col_iters = torch.zeros(b.shape[-1], dtype=torch.int32, device=b.device)
-    history = [resid]
-    k = 0
-    # the loop's one host read per iteration: is any column still active?
-    while k < maxiter and bool((resid > threshold).any()):
-        active = resid > threshold
-        AP = mv(P)
-        pAp = col_dot(P, AP)
-        alpha = torch.where(active, rz / safe(pAp, pAp == 0), 0.0)
-        X = X + alpha * P
-        R = R - alpha * AP
-        Z = mp(R)
-        rz_new = col_dot(R, Z)
-        beta = torch.where(active, rz_new / safe(rz, rz == 0), 0.0)
-        P = Z + beta * P
-        rz = rz_new
-        resid = col_norm(R)
-        history.append(resid)
-        col_iters += active
-        k += 1
+    history = resid.new_zeros((maxiter + 1, b.shape[-1]))
+    history[0] = resid
+    state = (X, R, Z, rz, resid, col_iters, history)
+    loop = EagerLoop() if loop is None else loop
+    state, k, _ = loop(cg_step(mv, mp), maxiter, state, (threshold,), (resid > threshold).any())
+    X, _, _, _, resid, col_iters, history = state
     info = {
         "iterations": k,  # until every column converged, or the cap
         "column_iterations": col_iters,
         "residual_norms": resid,
-        "residual_history": torch.stack(history),
+        "residual_history": history[: k + 1],
     }
     return unravel(X), info

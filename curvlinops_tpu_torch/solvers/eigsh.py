@@ -7,17 +7,37 @@ calls ``jax.experimental.sparse.linalg.lobpcg_standard``; PyTorch's
 ``[X, P, R]``, the same Rayleigh-Ritz step, the same basis truncation
 (SVQB, projection "twice is enough") and the same ``m`` / ``tol``
 semantics. It applies the operator at widths 1 (the input check), k and
-3k. The loop reads one integer per iteration to the host: the number of
-converged pairs.
+3k. Its iteration is a step function driven by a loop of
+:mod:`curvlinops_tpu_torch.utils.graphs`: eagerly, one host read of the
+flag "fewer than k pairs converged" an iteration, or, in
+:func:`topk_eigenpairs` over a ``capturable`` operator (the counterpart of
+JAX's ``jit="auto"``), as a captured chunk of masked iterations cached on
+the operator, one host read a chunk. Its small symmetric eigenproblems go
+through :func:`~curvlinops_tpu_torch.solvers.small_eigh.small_eigh`, a
+kernel that reads nothing to the host (``torch.linalg.eigh`` does);
+``torch.linalg.qr`` of the ``[2k, k]`` block reads nothing either and is
+captured as it is. The start (the input check, the orthonormalization, the
+SVD that extends the basis, the first product) runs eagerly.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable
 
 import torch
 
-from curvlinops_tpu_torch.solvers.lanczos import lanczos_extreme_eigenvalues, start_vector
+from curvlinops_tpu_torch.ops.base import LinearOperator, cached_program, program_pool
+from curvlinops_tpu_torch.solvers.lanczos import (
+    flat_matmat,
+    lanczos_extreme_eigenvalues,
+    start_vector,
+)
+from curvlinops_tpu_torch.solvers.small_eigh import small_eigh
+from curvlinops_tpu_torch.utils.graphs import ChunkedLoop, EagerLoop
+
+# the way out named when LOBPCG's program cannot be captured
+LOBPCG_REMEDY = "pass `capture=False` to `topk_eigenpairs` to run LOBPCG eagerly"
 
 
 def _col_norms(X: torch.Tensor) -> torch.Tensor:
@@ -27,18 +47,13 @@ def _col_norms(X: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(X, dim=0, keepdim=True, dtype=torch.float64).to(X.dtype)
 
 
-def _eigh_descending(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    w, V = torch.linalg.eigh(A)
-    return w.flip(0), V.flip(1)
-
-
 def _svqb(X: torch.Tensor) -> torch.Tensor:
     """A truncated orthonormal basis of ``X`` (SVQB): directions whose Gram
     eigenvalue is below ``eps`` times the largest come back as zero columns."""
     norms = _col_norms(X)
     X = X / torch.where(norms == 0, 1.0, norms)
     inner = X.T @ X
-    w, V = _eigh_descending(inner)
+    w, V = small_eigh(inner)
     tau = torch.finfo(X.dtype).eps * w[0]
     padded = torch.maximum(w, tau)
     sqrted = torch.where(tau > 0, padded, 1.0) ** -0.5
@@ -98,11 +113,46 @@ def _check_inputs(A: Callable, X: torch.Tensor) -> None:
         raise ValueError(f"A must be ({n}, {n}) matrix A, got output {tuple(out.shape)}")
 
 
+def lobpcg_step(matmat: Callable, n: int, k: int, tol: float) -> Callable:
+    """One LOBPCG iteration on the state ``(X, P, R, theta)``, as a loop
+    step (no constants); it goes on while fewer than ``k`` pairs have
+    converged."""
+
+    def step(i, state: tuple, consts: tuple) -> tuple:
+        X, P, R, _ = state
+        R = _project_out(torch.cat([X, P], dim=1), R)
+        XPR = torch.cat([X, P, R], dim=1)
+        # Rayleigh-Ritz on the orthonormal (zero columns allowed) XPR
+        theta_all, Q = small_eigh(XPR.T @ matmat(XPR))
+
+        B = Q[:, :k]
+        B = B / _col_norms(B)
+        X = XPR @ B
+        X = X / _col_norms(X)
+
+        # the difference directions: [0; Q[k:, :k]] orthogonalized against
+        # Q[:, :k] in the standard basis, then mapped by XPR
+        q, _ = torch.linalg.qr(Q[:k, k:].T)
+        P = XPR @ (Q[:, k:] @ q)
+        normP = _col_norms(P)
+        P = P / torch.where(normP == 0, 1.0, normP)
+
+        AX = matmat(X)
+        theta = theta_all[None, :k]
+        R = AX - theta * X
+        reltol = (torch.linalg.vector_norm(AX, dim=0) + theta_all[:k]) * n * 10
+        converged = (torch.linalg.vector_norm(R, dim=0) < tol * reltol).sum()
+        return (X, P, R, theta), converged < k
+
+    return step
+
+
 def lobpcg_standard(
     A: torch.Tensor | Callable[[torch.Tensor], torch.Tensor],
     X: torch.Tensor,
     m: int = 100,
     tol: float | None = None,
+    loop: ChunkedLoop | EagerLoop | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Top-k eigenpairs of a symmetric ``A`` by LOBPCG, as JAX's
     ``lobpcg_standard``.
@@ -113,6 +163,7 @@ def lobpcg_standard(
         m: Iteration cap.
         tol: A pair converges when ``||A v - lambda v|| < tol * 10 n
             (lambda + ||A v||)``; the dtype's ``eps`` when ``None``.
+        loop: Drives the iterations (an :class:`EagerLoop` when ``None``).
 
     Returns:
         ``(theta [k], U [n, k], iterations)``, the eigenvalues in
@@ -132,32 +183,10 @@ def lobpcg_standard(
     AX = matmat(X)
     theta = (X * AX).sum(0, keepdim=True)
     R = AX - theta * X
-    i, converged = 0, 0
-    # the loop's one host read per iteration: the count of converged pairs
-    while i < m and converged < k:
-        R = _project_out(torch.cat([X, P], dim=1), R)
-        XPR = torch.cat([X, P, R], dim=1)
-        # Rayleigh-Ritz on the orthonormal (zero columns allowed) XPR
-        theta_all, Q = _eigh_descending(XPR.T @ matmat(XPR))
-
-        B = Q[:, :k]
-        B = B / _col_norms(B)
-        X = XPR @ B
-        X = X / _col_norms(X)
-
-        # the difference directions: [0; Q[k:, :k]] orthogonalized against
-        # Q[:, :k] in the standard basis, then mapped by XPR
-        q, _ = torch.linalg.qr(Q[:k, k:].T)
-        P = XPR @ (Q[:, k:] @ q)
-        normP = _col_norms(P)
-        P = P / torch.where(normP == 0, 1.0, normP)
-
-        AX = matmat(X)
-        theta = theta_all[None, :k]
-        R = AX - theta * X
-        reltol = (torch.linalg.vector_norm(AX, dim=0) + theta_all[:k]) * n * 10
-        converged = int((torch.linalg.vector_norm(R, dim=0) < tol * reltol).sum())
-        i += 1
+    loop = EagerLoop() if loop is None else loop
+    running = torch.ones((), dtype=torch.bool, device=X.device)  # no pair converged yet
+    (X, _, _, theta), i, _ = loop(lobpcg_step(matmat, n, k, tol), m, (X, P, R, theta), (),
+                                  running)
     return theta[0], X, i
 
 
@@ -169,6 +198,7 @@ def topk_eigenpairs(
     tol: float | None = None,
     generator: torch.Generator | None = None,
     X0: torch.Tensor | None = None,
+    capture: bool | str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Largest-``k`` eigenpairs of a symmetric PSD operator by LOBPCG.
 
@@ -179,12 +209,33 @@ def topk_eigenpairs(
         tol: Residual tolerance (the dtype's ``eps`` when ``None``).
         generator: Draws the ``[dim, k]`` start block (ignored with ``X0``).
         X0: Start block ``[dim, k]``.
+        capture: Run the iterations as a captured program cached on ``A``
+            (under ``("lobpcg", k, maxiter, tol, dtype)``; the counterpart of
+            JAX's ``jit``): ``"auto"`` whenever ``A`` is a ``capturable``
+            :class:`~curvlinops_tpu_torch.ops.base.LinearOperator`, ``True``
+            requires one, ``False`` runs the eager loop.
 
     Returns:
         ``(eigenvalues [k] descending, eigenvectors [dim, k])``.
+
+    Raises:
+        ValueError: If ``capture=True`` and ``A`` is not a ``capturable``
+            operator.
     """
     X = X0 if X0 is not None else start_vector(A, generator, (A.shape[0], k))
-    evals, evecs, _ = lobpcg_standard(lambda V: A @ V, X, m=maxiter, tol=tol)
+    can = isinstance(A, LinearOperator) and A.capturable
+    if capture is True and not can:
+        raise ValueError("capture=True needs a `capturable` LinearOperator.")
+    loop = None
+    matmat = lambda V: A @ V  # noqa: E731
+    if can and capture:
+        ref = weakref.ref(A)  # A's cache holds the loop: no cycle through it
+        matmat = lambda V: flat_matmat(ref())(V)  # noqa: E731
+        loop = cached_program(
+            A, ("lobpcg", k, maxiter, tol, X.dtype),
+            lambda: ChunkedLoop(X.device, "LOBPCG", program_pool(A, X.device), LOBPCG_REMEDY),
+        )
+    evals, evecs, _ = lobpcg_standard(matmat, X, m=maxiter, tol=tol, loop=loop)
     order = torch.argsort(evals, descending=True)
     return evals[order], evecs[:, order]
 

@@ -36,7 +36,7 @@ from typing import Callable
 import torch
 
 from curvlinops_tpu_torch.ops.base import LinearOperator, cached_program, program_pool
-from curvlinops_tpu_torch.utils.graphs import CapturedProgram
+from curvlinops_tpu_torch.utils.graphs import SOLVER_REMEDY, CapturedProgram
 
 
 def flat_matmat(A) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -80,7 +80,7 @@ def _recurrence(A, key: tuple, make: Callable, start: torch.Tensor):
         A, key,
         lambda: CapturedProgram(
             make(lambda V: flat_matmat(ref())(V)), start.device, f"Lanczos {key}",
-            program_pool(A, start.device),
+            program_pool(A, start.device), SOLVER_REMEDY,
         ),
     )
     return program(start)

@@ -91,15 +91,18 @@ def split_list(xs: Sequence, sizes: Sequence[int]) -> list:
 @contextlib.contextmanager
 def full_float32_matmul():
     """Run the enclosed float32 matmuls at full float32 precision (TF32 off),
-    restoring the caller's ``torch.get_float32_matmul_precision()`` after.
+    restoring the caller's ``torch.backends.cuda.matmul.allow_tf32`` after.
 
     The counterpart of ``precision=HIGHEST`` on a JAX product: a user's
     ``torch.backends.cuda.matmul.allow_tf32 = True`` would otherwise round
-    the operands to 10 mantissa bits on the card.
+    the operands to 10 mantissa bits on the card. It sets the same (legacy)
+    flag it reads: torch refuses to read either API's flag once both were
+    set (``set_float32_matmul_precision`` here, then a caller's
+    ``allow_tf32``, made the next ``get_float32_matmul_precision()`` raise).
     """
-    saved = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(saved)
+        torch.backends.cuda.matmul.allow_tf32 = saved

@@ -25,7 +25,12 @@ against the streamed loop (one batch, uniform and ragged batches), MC
 replays that draw the same samples, outputs not aliased between calls, a
 Neumann series and fast Lanczos capturing a fused GGN inline, the same
 over a streamed MC GGN (resident or prefetched) running eagerly, an epoch
-bump freeing the graphs' pool, and a capture that cannot succeed raising.
+bump freeing the graphs' pool, and a capture that cannot succeed raising;
+the captured solvers: the masked chunked loop (stops at a chunk's edges,
+one host read a replay), CG, MINRES, LSMR and LOBPCG captured against
+eager, the small-eigh kernel against ``torch.linalg.eigh``, each class
+marked ``capturable`` inside a Neumann series, and a step that reads the
+host raising with the program's name.
 
 These tests need the card: they skip without one. The card's machine has no
 JAX, so this file imports only the port, and runs there without the suite's
@@ -1227,3 +1232,314 @@ def test_cond_model_fused_on_card(cuda, mode):
     v = {n: torch.randn(p.shape, generator=gen, dtype=p.dtype).to(cuda) for n, p in params.items()}
     assert rel_err(_flat(fused @ v), _flat(streamed @ v)) < 1e-12
     assert fused._program_cache[1][("fused_matmat", 1, torch.float64)]._graph is not None
+
+
+# ---------------------------------------------------------------------- #
+# captured solvers: the chunked loop, the small-eigh kernel, and the
+# operators marked capturable
+# ---------------------------------------------------------------------- #
+def _count_step(k, state, consts):
+    """A loop step that doubles and shifts ``x``, records it, and goes on
+    while ``k + 1 < stop``."""
+    x, hist = state
+    (stop,) = consts
+    x = 2 * x + 1
+    index = torch.clamp(k + 1, max=hist.shape[0] - 1).reshape(1)
+    return (x, hist.index_copy(0, index, x[None])), k + 1 < stop
+
+
+@pytest.mark.cuda
+def test_chunked_loop_masks_steps_past_the_stop_on_card(cuda):
+    """The masked chunk (the card's torch has no conditional graph nodes):
+    stops at 1, ``CHUNK - 1``, ``CHUNK``, ``CHUNK + 1`` and past ``maxiter``
+    commit exactly the steps before the stop, equal the eager loop's state,
+    read the host once a replay, and reuse one captured graph."""
+    import math
+
+    from curvlinops_tpu_torch.utils.graphs import CHUNK, ChunkedLoop, EagerLoop
+
+    maxiter = 2 * CHUNK + 1
+    loop = ChunkedLoop(cuda, "the counting loop")
+    graphs = set()
+    for stop in (1, CHUNK - 1, CHUNK, CHUNK + 1, 3 * CHUNK):
+        state = (torch.zeros(3, dtype=torch.float64, device=cuda),
+                 torch.zeros((maxiter + 1, 3), dtype=torch.float64, device=cuda))
+        consts = (torch.tensor(stop, device=cuda),)
+        running = torch.ones((), dtype=torch.bool, device=cuda)
+        (x, hist), k, reads = loop(_count_step, maxiter, state, consts, running)
+        (x_e, hist_e), k_e, _ = EagerLoop()(_count_step, maxiter, state, consts, running)
+        graphs.add(id(loop._graph))
+        assert k == k_e == min(stop, maxiter) and reads == math.ceil(k / CHUNK)
+        assert torch.equal(x, x_e) and torch.equal(hist, hist_e)
+        assert float(x[0]) == 2.0**k - 1 and float(hist[k, 0]) == 2.0**k - 1
+    assert len(graphs) == 1 and loop.capture_seconds is not None
+
+
+def _solver_case(cuda):
+    """The tiny MLP's module on one batch (float64): a fused and a streamed
+    GGN + 0.1 I, the fused and streamed Jacobians, and KFAC's damped
+    inverse (type-2)."""
+    from curvlinops_tpu_torch import IdentityLinearOperator
+
+    model, params, data = _kfac_case(tmlp.tiny_mlp_problem, cuda)
+    loss = CrossEntropyLoss("mean")
+    ops = {}
+    for mode in ("fused", "streamed"):
+        G = GGNLinearOperator(model, loss, params, data, check_deterministic=False)
+        J = JacobianLinearOperator(model, params, data, check_deterministic=False)
+        if mode == "streamed":
+            G.fuse_batches = J.fuse_batches = False
+        ops[mode] = (G + 0.1 * IdentityLinearOperator(G.in_spec), J)
+    kfac = KFACLinearOperator(model, loss, params, data, fisher_type="type-2",
+                              check_deterministic=False)
+    return ops, kfac.inverse(damping=0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["cg", "pcg", "minres", "lsmr", "lobpcg"])
+def test_captured_solver_matches_eager_on_card(cuda, solver):
+    """Each solve over the fused operators runs as a captured chunked loop
+    and equals the same solve over the streamed ones, which runs eagerly
+    (float64, 1e-10): at a fixed iteration count and at a tolerance that
+    stops it mid-run, with the same iteration count and at most
+    ``ceil(iterations / CHUNK) + 1`` host reads."""
+    import math
+
+    from curvlinops_tpu_torch import (
+        CGInverseLinearOperator,
+        LSMRInverseLinearOperator,
+        MINRESInverseLinearOperator,
+    )
+    from curvlinops_tpu_torch.solvers.eigsh import topk_eigenpairs
+    from curvlinops_tpu_torch.utils.graphs import CHUNK
+
+    ops, kinv = _solver_case(cuda)
+    gen = torch.Generator().manual_seed(3)
+    n = ops["fused"][0].shape[0]
+    if solver == "lobpcg":
+        X0 = torch.randn((n, 2), generator=gen, dtype=torch.float64).to(cuda)
+        G = ops["fused"][0]
+        out = {m: topk_eigenpairs(ops[m][0], 2, maxiter=9, X0=X0, tol=1e-12)
+               for m in ("fused", "streamed")}
+        (loop,) = [p for p in G._program_cache[1].values() if hasattr(p, "host_reads")]
+        assert loop._graph is not None and loop.host_reads == math.ceil(9 / CHUNK)
+        assert rel_err(out["fused"][0], out["streamed"][0]) < 1e-10
+        proj = [U @ U.T for _, U in out.values()]
+        assert rel_err(proj[0], proj[1]) < 1e-8
+        return
+    for stop in ({"tol": 0.0, "atol": 0.0}, {"tol": 1e-6, "atol": 0.0}):
+        infos, xs = {}, {}
+        for mode in ("fused", "streamed"):
+            A, J = ops[mode]
+            if solver == "lsmr":
+                inv = LSMRInverseLinearOperator(J, maxiter=40, atol=stop["tol"], btol=stop["tol"])
+                B = torch.randn((J.shape[0], 2), generator=torch.Generator().manual_seed(4),
+                                dtype=torch.float64).to(cuda)
+            else:
+                cls = MINRESInverseLinearOperator if solver == "minres" else CGInverseLinearOperator
+                kw = {"preconditioner": kinv} if solver == "pcg" else {}
+                inv = cls(A, maxiter=40 if stop["tol"] else 11, **stop, **kw)
+                B = torch.randn((n, 2), generator=torch.Generator().manual_seed(4),
+                                dtype=torch.float64).to(cuda)
+            xs[mode] = inv @ B
+            infos[mode] = inv.lsmr_info if solver == "lsmr" else inv.last_info
+            if mode == "fused":
+                assert any(getattr(p, "_graph", None) is not None
+                           for p in inv._program_cache[1].values())
+            else:
+                assert "_program_cache" not in inv.__dict__
+        k = infos["fused"]["iterations"]
+        assert k == infos["streamed"]["iterations"] and k > 0
+        assert infos["fused"]["host_reads"] <= math.ceil(k / CHUNK) + 1
+        assert infos["streamed"]["host_reads"] >= k
+        assert rel_err(xs["fused"], xs["streamed"]) < 1e-10
+
+
+def _symmetric(n: int, dtype, repeated: bool, gen) -> torch.Tensor:
+    """A random symmetric ``[n, n]``, or one whose eigenvalues repeat in
+    threes (``Q diag(w) Q^T``)."""
+    A = torch.randn((n, n), generator=gen, dtype=torch.float64)
+    if repeated:
+        Q = torch.linalg.qr(A)[0]
+        w = torch.arange(n, dtype=torch.float64).div(3).floor() - n / 6
+        A = (Q * w) @ Q.T
+    return ((A + A.T) / 2).to(dtype)
+
+
+def _cluster_projector_error(w, V, w_ref, V_ref, gap: float) -> float:
+    """The largest distance between the two spectral projectors of a
+    cluster of eigenvalues (consecutive ones closer than ``gap``)."""
+    worst, start = 0.0, 0
+    for i in range(1, len(w_ref) + 1):
+        if i == len(w_ref) or w_ref[i - 1] - w_ref[i] > gap:
+            P = V[:, start:i] @ V[:, start:i].T
+            P_ref = V_ref[:, start:i] @ V_ref[:, start:i].T
+            worst, start = max(worst, float((P - P_ref).norm())), i
+    return worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("repeated", [False, True], ids=["distinct", "repeated"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [3, 12, 48, 96])
+def test_small_eigh_kernel_matches_eigh_on_card(cuda, n, dtype, repeated):
+    """The Jacobi kernel on a batch of three matrices against
+    ``torch.linalg.eigh`` (descending): eigenvalues within ``20 n eps`` of
+    the largest, residuals ``||A V - V diag(w)||`` and ``||V^T V - I||``
+    within ``20 n eps`` (times ``||A||``), and each cluster's projector
+    (eigenvalues closer than ``10^-2 ||A||``) within ``20 n eps ||A||`` over
+    the gap. Refuses n = 97 and integer matrices."""
+    from curvlinops_tpu_torch.solvers import small_eigh as se
+
+    gen = torch.Generator().manual_seed(n)
+    A = torch.stack([_symmetric(n, dtype, repeated, gen) for _ in range(3)]).to(cuda)
+    before = se.small_eigh.launches
+    w, V = se.small_eigh(A)
+    torch.cuda.synchronize()
+    assert se.small_eigh.launches == before + 1
+    w_ref, V_ref = se.small_eigh_plain(A)
+    tol = 20 * n * torch.finfo(dtype).eps
+    for b in range(3):
+        Ab, scale = A[b].double(), float(A[b].double().norm())
+        wb, Vb = w[b].double(), V[b].double()
+        assert float((wb - w_ref[b].double()).abs().max()) <= tol * scale
+        assert bool((wb[:-1] >= wb[1:]).all())
+        assert float((Ab @ Vb - Vb * wb).norm()) <= tol * scale
+        assert float((Vb.T @ Vb - torch.eye(n, dtype=torch.float64, device=cuda)).norm()) <= tol
+        gap = 1e-2 * scale
+        err = _cluster_projector_error(wb, Vb, w_ref[b].double(), V_ref[b].double(), gap)
+        assert err <= tol * scale / gap
+    with pytest.raises(ValueError, match="square matrices"):
+        se.small_eigh(torch.eye(97, device=cuda))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        se.small_eigh(torch.eye(3, dtype=torch.int32, device=cuda))
+
+
+def _uncaptured(A):
+    """``A``'s products behind an operator that no program captures
+    (``capturable`` False): a series over it runs eagerly."""
+    from curvlinops_tpu_torch.ops.base import LinearOperator
+
+    class Wrapped(LinearOperator):
+        def _matmat(self, M):
+            return A._matmat(M)
+
+    op = Wrapped(A.in_spec, A.out_spec)
+    op.SELF_ADJOINT = A.SELF_ADJOINT
+    return op
+
+
+def _capturable_operator(kind: str, cuda):
+    """One operator of each class marked ``capturable`` (float64)."""
+    from curvlinops_tpu_torch import (
+        BlockDiagonalLinearOperator,
+        EKFACLinearOperator,
+        EighDecomposedLinearOperator,
+        KroneckerProductLinearOperator,
+        KFOCLinearOperator,
+        MatrixLinearOperator,
+        SubmatrixLinearOperator,
+    )
+    from curvlinops_tpu_torch.ops.kronecker import EmbeddingEighOperator, EmbeddingKroneckerOperator
+    from curvlinops_tpu_torch.ops.stacked import StackedEighOperator, StackedKroneckerOperator
+
+    gen = torch.Generator().manual_seed(5)
+    kw = dict(dtype=torch.float64)
+
+    def spd(*shape):
+        M = torch.randn(*shape, generator=gen, **kw)
+        return (M @ M.mT / shape[-1] + torch.eye(shape[-1], **kw)).to(cuda)
+
+    def orth(*shape):
+        return torch.linalg.qr(torch.randn(*shape, generator=gen, **kw))[0].to(cuda)
+
+    if kind in ("kfac", "kfac_exact", "kfac_rank", "ekfac", "kfoc"):
+        model, params, data = _kfac_case(tmlp.tiny_mlp_problem, cuda)
+        args = (model, CrossEntropyLoss("mean"), params, data)
+        kw2 = dict(fisher_type="type-2", check_deterministic=False)
+        cls = {"ekfac": EKFACLinearOperator, "kfoc": KFOCLinearOperator}.get(kind, KFACLinearOperator)
+        A = cls(*args, **kw2)
+        if kind == "kfac_exact":
+            A = A.inverse(damping=0.1, use_exact_damping=True)
+        elif kind == "kfac_rank":
+            A = A.inverse(damping=0.1, use_exact_damping=True, rank=4)
+        return A
+    if kind == "kron":
+        return KroneckerProductLinearOperator(spd(3, 3), spd(4, 4))
+    if kind == "stacked_kron":
+        return StackedKroneckerOperator(spd(2, 3, 3), spd(2, 4, 4))
+    if kind == "stacked_eigh":
+        lam = torch.rand((2, 12), generator=gen, **kw).to(cuda) + 0.5
+        return StackedEighOperator(lam, [orth(2, 3, 3), orth(2, 4, 4)])
+    if kind == "embedding_kron":
+        return EmbeddingKroneckerOperator(spd(3, 3), (torch.rand(5, generator=gen, **kw) + 0.5).to(cuda))
+    if kind == "embedding_eigh":
+        return EmbeddingEighOperator((torch.rand((3, 5), generator=gen, **kw) + 0.5).to(cuda), orth(3, 3))
+    if kind == "eigh":
+        lam = (torch.rand(12, generator=gen, **kw) + 0.5).to(cuda)
+        return EighDecomposedLinearOperator(lam, KroneckerProductLinearOperator(orth(3, 3), orth(4, 4)))
+    if kind == "blockdiag":
+        return BlockDiagonalLinearOperator([KroneckerProductLinearOperator(spd(2, 2), spd(3, 3)),
+                                            MatrixLinearOperator(spd(4, 4))])
+    if kind == "submatrix":
+        idx = [0, 2, 3, 5, 7]
+        return SubmatrixLinearOperator(MatrixLinearOperator(spd(9, 9)), idx, idx)
+    ops, _ = _solver_case(cuda)
+    G, J = ops["fused"]
+    if kind == "held":
+        return G._A.linearized()  # G is the GGN + 0.1 I
+    return J.adjoint() @ J  # "jacobian": J^T J over the held batches
+
+
+CAPTURABLE_KINDS = ["kfac", "kfac_exact", "kfac_rank", "ekfac", "kfoc", "kron", "stacked_kron",
+                    "stacked_eigh", "embedding_kron", "embedding_eigh", "eigh", "blockdiag",
+                    "submatrix", "held", "jacobian"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", CAPTURABLE_KINDS)
+def test_capturable_operator_in_neumann_on_card(cuda, kind):
+    """Each class marked ``capturable`` is captured inside a Neumann series
+    (one graph) and equals the same series run eagerly over it (float64,
+    1e-10)."""
+    from curvlinops_tpu_torch import NeumannInverseLinearOperator
+
+    A = _capturable_operator(kind, cuda)
+    assert A.capturable
+    V = torch.randn((A.shape[1], 2), generator=torch.Generator().manual_seed(6),
+                    dtype=torch.float64).to(cuda)
+    scale = 0.5 / float(torch.linalg.matrix_norm(A @ torch.eye(A.shape[1], dtype=torch.float64,
+                                                                 device=cuda), ord=2))
+    captured = NeumannInverseLinearOperator(A, num_terms=6, scale=scale)
+    eager = NeumannInverseLinearOperator(_uncaptured(A), num_terms=6, scale=scale)
+    x, ref = captured @ V, eager @ V
+    (program,) = [p for p in captured._program_cache[1].values() if hasattr(p, "_graph")]
+    assert program._graph is not None and "_program_cache" not in eager.__dict__
+    assert rel_err(x, ref) < 1e-10
+
+
+@pytest.mark.cuda
+def test_host_read_in_a_step_raises_naming_the_program_on_card(cuda):
+    """An operator marked ``capturable`` whose product reads the host: the
+    CG solve's and LOBPCG's captures raise ``RuntimeError`` naming the
+    program and the way out, and the card stays usable."""
+    from curvlinops_tpu_torch import CGInverseLinearOperator, MatrixLinearOperator
+    from curvlinops_tpu_torch.solvers.eigsh import topk_eigenpairs
+
+    class HostRead(MatrixLinearOperator):
+        def _matmat(self, M):
+            if float(M.abs().sum()) < 0:  # a host read: refused under capture
+                M = -M
+            return super()._matmat(M)
+
+    gen = torch.Generator().manual_seed(7)
+    M = torch.randn((30, 30), generator=gen, dtype=torch.float64)
+    A = HostRead((M @ M.T / 30 + torch.eye(30, dtype=torch.float64)).to(cuda))
+    A.SELF_ADJOINT = True
+    with pytest.raises(RuntimeError, match="(?s)Capturing the CG solve as a CUDA graph failed.*capturable"):
+        CGInverseLinearOperator(A, maxiter=5) @ torch.ones(30, dtype=torch.float64, device=cuda)
+    with pytest.raises(RuntimeError, match="(?s)Capturing LOBPCG as a CUDA graph failed.*capture=False"):
+        topk_eigenpairs(A, 2, maxiter=5)
+    assert float(torch.ones(3, device=cuda).sum()) == 3.0
+    w, _ = topk_eigenpairs(A, 2, maxiter=5, capture=False)
+    assert torch.isfinite(w).all()

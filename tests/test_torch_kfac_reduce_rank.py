@@ -316,3 +316,26 @@ def test_batched_randomized_eigh_refuses_a_mesh():
     # a mesh without the data axis; real meshes are in tests/test_torch_parallel.py
     with pytest.raises(ValueError, match="no axis 'data'"):
         trand.batched_randomized_eigh({0: torch.eye(3)}, 2, mesh=object())
+
+
+@pytest.mark.parametrize("user_tf32", [False, True])
+def test_full_float32_matmul_keeps_the_flags_readable(user_tf32):
+    """The range finder's TF32 guard turns ``allow_tf32`` off inside and
+    restores the user's value, through the one API the caller uses: a later
+    ``allow_tf32`` write must leave ``get_float32_matmul_precision()``
+    readable (a guard that set the precision through the other API made it
+    raise on the card, where the range finder ran after such a write)."""
+    from curvlinops_tpu_torch.utils.misc import full_float32_matmul
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = user_tf32
+        with full_float32_matmul():
+            assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is user_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        assert torch.get_float32_matmul_precision() == "highest"
+        with full_float32_matmul():
+            pass
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
