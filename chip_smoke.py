@@ -149,8 +149,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     Lanczos over KFAC's inverse, captured against eager; the small-eigh
     kernel against ``torch.linalg.eigh`` on LOBPCG's own Gram matrices, with
     its time;
-15. prints a JSON line of the port's own kernels (the small-eigh kernel,
-    which replaces no TPU kernel), a JSON line of the TPU kernels' results
+15. the bfloat16 speed mode (``bf16_phases``, one JSON line per model):
+    ResNet-18 at batch 512 and the flash GPT-2 small with parameters and
+    inputs in bfloat16, each against a float32 twin of the same
+    bfloat16-valued weights: the KFAC build (MC; kernel 1 launched 19 times,
+    kernels 2-4 24 / 12 / 12, each on bfloat16 inputs and each launch held
+    against its plain version), the GGN matvec (the GPT's on its einsum
+    twin), KFAC's matvec and the exact and heuristic damped inverses'
+    matvecs: bfloat16 outputs, finite, float32 factors, within 5e-2 of
+    float32 on the GPT; on ResNet-18, whose bfloat16 forward alone moves
+    its factors and GGN by a quarter (as the JAX package's does), those two
+    within 0.5 and its KFAC and inverse matvecs within 0.1; with both
+    versions' times, and each build's garbage-collector pauses and device
+    allocations;
+16. LOBPCG at k = 40 (``lobpcg_large_k_phases``) on ResNet-18's MC KFAC,
+    captured and eager: the Ritz values against the exact top 40 from the
+    factors' eigenvalues (float64), captured against eager, every small
+    problem through the small-eigh kernel, by both of its routes (the
+    ``[40, 40]`` Gram matrices shared, the ``[120, 120]`` Rayleigh-Ritz
+    matrices global); each route timed on one of the run's matrices and
+    held to float64 ``eigh``;
+17. prints a JSON line of the port's own kernels (the small-eigh kernel,
+    which replaces no TPU kernel: the k = 4 run's ``[12, 12]`` matrix, the
+    shared route at ``[40, 40]`` and the global at ``[120, 120]``), a JSON
+    line of the TPU kernels' results
     and, last, a JSON status line.
 
 Each kernel's bound is the larger of its bytes (each input read once, each
@@ -290,8 +312,14 @@ def device_profile(torch, label: str, fn, top: int = 8, warm: bool = True) -> fl
 
 def _main_kernel(mangled: str) -> str | None:
     """The port kernel a mangled name instantiates, if it is the float32 (head
-    dim 64) instantiation the main paths run."""
+    dim 64) instantiation the main paths run (the small-eigh kernel's by
+    route)."""
     name = next((k for k in PORT_KERNELS if k in mangled), None)
+    if name == "reduce_mirror_kernel":  # float32 only
+        return name
+    for mark, route in (("IfLb1EE", " (shared)"), ("IfLb0EE", " (global)")):
+        if mark in mangled:
+            return name + route
     return name if "IfEE" in mangled or "IfLi64EE" in mangled else None
 
 
@@ -396,6 +424,10 @@ def main() -> None:
     marks.append(time.perf_counter())
     captured_solvers = captured_solver_phases(torch, dev, smi)
     marks.append(time.perf_counter())
+    bf16_launches = bf16_phases(torch, dev, smi)
+    marks.append(time.perf_counter())
+    large_k = lobpcg_large_k_phases(torch, dev, smi)
+    marks.append(time.perf_counter())
     for entry in entries:
         entry["launches"] += phase_launches[entry["name"]]
         entry["launches"] += stacked_launches.get(entry["name"], 0)
@@ -404,14 +436,17 @@ def main() -> None:
         entry["launches"] += parallel_launches.get(entry["name"], 0)
         entry["launches"] += fused_launches.get(entry["name"], 0)
         entry["launches"] += captured_solvers["launches"].get(entry["name"], 0)
+        entry["launches"] += bf16_launches.get(entry["name"], 0)
+        entry["launches"] += large_k["launches"].get(entry["name"], 0)
     print("phase seconds: ResNet-18 kernel and KFAC {:.1f}, GPT kernels and KFAC {:.1f}, "
           "curvature operators {:.1f}, solvers {:.1f}, KFAC family {:.1f}, estimators, "
           "GGN diagonal and held linearizations {:.1f}, transformer family {:.1f}, "
           "collector (bias-only, Conv1D layout) {:.1f}, cond-gated GPT and fuzz twins "
           "{:.1f}, data parallelism and prefetch {:.1f}, captured programs {:.1f}, captured "
-          "solvers {:.1f}".format(*(b - a for a, b in zip(marks, marks[1:]))))
+          "solvers {:.1f}, bfloat16 {:.1f}, LOBPCG at large k {:.1f}".format(
+              *(b - a for a, b in zip(marks, marks[1:]))))
     # the port's own kernels, which replace no TPU kernel
-    print(json.dumps({"port_kernels": [captured_solvers["small_eigh"]]}))
+    print(json.dumps({"port_kernels": [captured_solvers["small_eigh"], *large_k["small_eigh"]]}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -514,7 +549,7 @@ def resnet_phases(torch, dev, kernels) -> dict:
     plain, _ = kernels.conv_input_covariance_plain(xb, u0.meta)
     err = rel_err(cov, plain)
     print(f"bfloat16 ({u0.name}): rel err {err:.2e} (tol {BF16_TOL}), dtype {cov.dtype}")
-    if cov.dtype != torch.bfloat16 or not err < BF16_TOL:
+    if cov.dtype != torch.float32 or not err < BF16_TOL:
         raise RuntimeError("bfloat16 case disagrees")
     del inputs, eligible, traced
 
@@ -3814,6 +3849,447 @@ def captured_solver_phases(torch, dev, smi: str) -> dict:
     torch.cuda.empty_cache()
     return {"launches": {"conv_input_covariance": conv_launches}, "small_eigh": entry}
 
+
+
+# ---------------------------------------------------------------------- #
+# the bfloat16 speed mode end to end
+# ---------------------------------------------------------------------- #
+RESNET_CONV_LAUNCHES = 19  # ResNet-18's kernel-eligible convs (all but the 7x7 stem): a build
+BF16_REL_TOL = 5e-2  # bfloat16 against the float32 twin: the JAX package's bound
+BF16_ITEMS = ("factor", "kfac_matvec", "exact_inverse_matvec", "heuristic_inverse_matvec",
+              "ggn_matvec")
+# ResNet-18's bounds, each between this card's readings (H100, 700 W) and a
+# fault's: bfloat16 rounding of twenty BN-normalised layers' activations
+# moves its logits by a few per cent and, through the softmax, its factors
+# and GGN by a quarter (0.245, 0.260); the JAX package's own bfloat16 mode is
+# 27.8 % from float32 on a narrow ResNet's GGN matvec
+# (tests/test_torch_bfloat16.py holds the port's deviation to JAX's), so 5e-2
+# is out of reach there, and 0.5 still fails a result off by a factor of 1.5
+# or unrelated to float32's. KFAC's matvec and the damped inverses' read
+# 0.042, 0.018 and 0.050: 0.1. The kernels are held to their plain versions
+# launch by launch (BF16_KERNEL_TOLS)
+BF16_RESNET_TOLS = {"factor": 0.5, "kfac_matvec": 0.1, "exact_inverse_matvec": 0.1,
+                    "heuristic_inverse_matvec": 0.1, "ggn_matvec": 0.5}
+# each bfloat16 launch of the main path against its plain version on the same
+# inputs: the conv covariance is a float32 sum of products exact in TF32
+# (summation order only); flash outputs are rounded to bfloat16 (2^-8)
+BF16_KERNEL_TOLS = {"conv_input_covariance": F32_TOL, "fwd": BF16_TOL, "bwd_dkv": BF16_TOL,
+                    "bwd_dq": BF16_TOL}
+BF16_DAMPING = 0.1  # the damped inverses' delta
+BF16_GGN_REPS = 5  # GGN matvecs timed (CUDA events, after one warm-up)
+
+
+def bf16_report(item: str, **fields) -> None:
+    """One JSON line of the bfloat16 phase."""
+    print(json.dumps({"bf16_phase": item, **fields}))
+
+
+@contextlib.contextmanager
+def host_costs(torch):
+    """What the block spent outside the device, in a dict filled on exit:
+    the garbage collector's pauses (ms, ``gc.callbacks``) and the caching
+    allocator's device allocations and frees (``torch.cuda.memory_stats``)."""
+    costs, started = {"gc_ms": 0.0}, []
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            costs["gc_ms"] += (time.perf_counter() - started.pop()) * 1e3
+
+    keys = ("num_device_alloc", "num_device_free")
+    before = torch.cuda.memory_stats()
+    gc.callbacks.append(on_gc)
+    try:
+        yield costs
+    finally:
+        gc.callbacks.remove(on_gc)
+        after = torch.cuda.memory_stats()
+        costs.update({k: after.get(k, 0) - before.get(k, 0) for k in keys})
+
+
+@contextlib.contextmanager
+def launch_dtypes(torch, keep: bool = False):
+    """The dtype of the input that reaches each launch of kernels 1-4 inside:
+    ``{"conv_input_covariance": [...], "fwd": [...], ...}``, recorded by
+    wrapping the names the factor pass and the flash Function call; with
+    ``keep``, ``(dtype, args, kwargs, output)`` (:func:`check_launches`)."""
+    from curvlinops_tpu_torch.kfac import computer as kcomputer
+    from curvlinops_tpu_torch.models import flash_attention as fa
+
+    seen = {"conv_input_covariance": [], **{n: [] for n in FLASH_KERNELS}}
+    conv = kcomputer.conv_input_covariance
+    flash = {n: getattr(fa, f"flash_attention_{n}_kernel") for n in FLASH_KERNELS}
+
+    def recording(name, fn):
+        def wrapped(x, *args, **kwargs):
+            out = fn(x, *args, **kwargs)
+            seen[name].append((x.dtype, (x, *args), kwargs, out) if keep else x.dtype)
+            return out
+        return wrapped
+
+    kcomputer.conv_input_covariance = recording("conv_input_covariance", conv)
+    for n, fn in flash.items():
+        setattr(fa, f"flash_attention_{n}_kernel", recording(n, fn))
+    try:
+        yield seen
+    finally:
+        kcomputer.conv_input_covariance = conv
+        for n, fn in flash.items():
+            setattr(fa, f"flash_attention_{n}_kernel", fn)
+
+
+def check_launches(torch, seen: dict) -> dict:
+    """Each kept launch's output against its kernel's plain version on the
+    same inputs (relative Frobenius error, worst over the launches, by
+    kernel; :data:`BF16_KERNEL_TOLS`)."""
+    from curvlinops_tpu_torch.kfac import kernels
+    from curvlinops_tpu_torch.models import flash_attention as fa
+
+    plain = {"conv_input_covariance": kernels.conv_input_covariance_plain,
+             "fwd": fa.flash_attention_plain, "bwd_dkv": fa.flash_attention_bwd_dkv_plain,
+             "bwd_dq": fa.flash_attention_bwd_dq_plain}
+    worst = {}
+    for name, launches in seen.items():
+        for _, args, kwargs, out in launches:
+            ref = plain[name](*args, **kwargs)
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            if name == "conv_input_covariance":  # (cov, S)
+                outs, refs = outs[:1], refs[:1]
+            err = max(rel_err(a, b) for a, b in zip(outs, refs))
+            worst[name] = max(worst.get(name, 0.0), err)
+            del ref, refs
+    return worst
+
+
+def float32_twin(problem, copy_of):
+    """``(model, params, kfac_params, data)`` of ``problem`` in float32: the
+    same bfloat16-valued weights and inputs, upcast (labels unchanged)."""
+    model = copy_of(problem.model).float()
+    params = dict(model.named_parameters())
+    data = [(X.float() if X.is_floating_point() else X, y) for X, y in problem.data]
+    return model, params, {n: params[n] for n in problem.kfac_params}, data
+
+
+def bf16_model(torch, label: str, kfac_problem, ggn_problem, expected: dict, tols: dict,
+               smi: str) -> dict:
+    """KFAC's build, the GGN's matvec, KFAC's matvec and the exact and
+    heuristic damped inverses' matvecs of one bfloat16 model against its
+    float32 twin. KFAC is built with the MC Fisher (the main path's), and
+    with the empirical Fisher in both types for the comparisons: MC draws
+    from bfloat16 and float32 probabilities differ wherever two classes'
+    draws are within rounding (on a 3-layer GPT on the CPU, MC factors 14 %
+    apart against 1.4 % for the empirical ones). Gates: bfloat16 outputs,
+    finite; float32 factors; each factor, matvec and inverse matvec within
+    its ``tols`` entry (keys :data:`BF16_ITEMS`) of the twin's; each
+    bfloat16 build launches kernels 1-4 ``expected`` times, each on bfloat16
+    inputs, and each launch of the empirical build agrees with its plain
+    version (``BF16_KERNEL_TOLS``). Each build reports its
+    :func:`host_costs`. Returns the launches of the builds by kernel."""
+    import copy
+
+    from curvlinops_tpu_torch import CrossEntropyLoss, GGNLinearOperator, KFACLinearOperator
+    from curvlinops_tpu_torch.kfac import kernels
+    from curvlinops_tpu_torch.models import flash_attention as fa
+
+    loss = CrossEntropyLoss("mean")
+    twin = float32_twin(kfac_problem, copy.deepcopy)
+    row, launches = {}, {}
+    kfacs = {}
+    bf16_args = (kfac_problem.model, kfac_problem.kfac_params, kfac_problem.data)
+    for name, (model, kfac_params, data), fisher in (
+        ("bf16_mc", bf16_args, "mc"), ("bf16", bf16_args, "empirical"),
+        ("f32", (twin[0], twin[2], twin[3]), "empirical"),
+    ):
+        kernels.conv_input_covariance.launches = 0
+        for n in fa.launches:
+            fa.launches[n] = 0
+        with launch_dtypes(torch, keep=name == "bf16") as seen, host_costs(torch) as costs:
+            kfacs[name], row[f"{name}_build_ms"] = timed(torch, lambda: KFACLinearOperator(
+                model, loss, kfac_params, data, fisher_type=fisher, check_deterministic=False))
+        row[f"{name}_build_host_costs"] = costs
+        counts = {"conv_input_covariance": kernels.conv_input_covariance.launches,
+                  **{n: fa.launches[n] for n in FLASH_KERNELS}}
+        for n, c in counts.items():
+            launches[n] = launches.get(n, 0) + c
+        if name.startswith("bf16"):
+            row[f"{name}_launches"] = {n: c for n, c in counts.items() if c}
+            row[f"{name}_launch_dtypes"] = sorted({str(d[0] if isinstance(d, tuple) else d)
+                                                   for ds in seen.values() for d in ds})
+            if not (row[f"{name}_launches"] == expected
+                    and all(len(seen[n]) == counts[n] for n in counts)
+                    and row[f"{name}_launch_dtypes"] == ["torch.bfloat16"]):
+                raise RuntimeError(f"bfloat16 {label}, {name}: launches {counts} (expected "
+                                   f"{expected}), dtypes {row[f'{name}_launch_dtypes']}")
+            if name == "bf16":
+                row["kernel_vs_plain"] = check_launches(torch, seen)
+                if not all(e <= BF16_KERNEL_TOLS[n] for n, e in row["kernel_vs_plain"].items()):
+                    raise RuntimeError(f"bfloat16 {label}: kernels against their plain "
+                                       f"versions {row['kernel_vs_plain']}")
+        del seen
+    # a second build of each type: the first of a type pays cuDNN's and the
+    # kernels' first use (13.5 s against 29 ms warm for ResNet-18 in bfloat16)
+    for name, (model, kfac_params, data) in (("bf16", bf16_args),
+                                             ("f32", (twin[0], twin[2], twin[3]))):
+        kernels.conv_input_covariance.launches = 0
+        for n in fa.launches:
+            fa.launches[n] = 0
+        with host_costs(torch) as costs:
+            _, row[f"{name}_warm_build_ms"] = timed(torch, lambda: KFACLinearOperator(
+                model, loss, kfac_params, data, fisher_type="empirical",
+                check_deterministic=False))
+        row[f"{name}_warm_build_host_costs"] = costs
+        launches["conv_input_covariance"] += kernels.conv_input_covariance.launches
+        for n in FLASH_KERNELS:
+            launches[n] += fa.launches[n]
+    mc = kfacs.pop("bf16_mc")
+    mc_factors = [*mc._aaT.values(), *mc._ggT.values()]
+    row["mc_factor_dtypes"] = sorted({str(f.dtype) for f in mc_factors})
+    if not (row["mc_factor_dtypes"] == ["torch.float32"] and finite_tree(mc_factors)):
+        raise RuntimeError(f"bfloat16 {label}, MC build: {row}")
+    del mc, mc_factors
+    kb, k32 = kfacs["bf16"], kfacs["f32"]
+    factors = [(f, g) for m in ("_aaT", "_ggT") for f, g in zip(
+        getattr(kb, m).values(), getattr(k32, m).values())]
+    row["factor_dtypes"] = sorted({str(f.dtype) for f, _ in factors})
+    row["worst_factor_rel_err"] = max(rel_err(f, g) for f, g in factors)
+    row["factors"] = len(factors)
+
+    def compare(item: str, op_b, op_32, v: dict) -> None:
+        vb = {n: t.bfloat16() for n, t in v.items()}
+        v32 = {n: t.float() for n, t in vb.items()}
+        out_b, out_32 = op_b @ vb, op_32 @ v32
+        row[f"{item}_rel_err"] = rel_err(flat(out_b), flat(out_32))
+        row[f"{item}_dtypes"] = sorted({str(t.dtype) for t in out_b.values()})
+        if not (row[f"{item}_dtypes"] == ["torch.bfloat16"] and finite_tree(out_b)
+                and row[f"{item}_rel_err"] < tols[item]):
+            raise RuntimeError(f"bfloat16 {label}, {item}: {row}")
+
+    gen = torch.Generator(kb.device).manual_seed(11)
+    v = {n: torch.randn(t.shape, generator=gen, device=t.device)
+         for n, t in kfac_problem.kfac_params.items()}
+    compare("kfac_matvec", kb, k32, v)
+    for name, op in (("bf16", kb), ("f32", k32)):
+        vb = {n: t.to(op.dtype) for n, t in v.items()}
+        row[f"{name}_kfac_matvec_ms"] = time_ms(lambda: op @ vb, torch)
+    for item, kw in (("exact", dict(use_exact_damping=True)),
+                     ("heuristic", dict(use_heuristic_damping=True))):
+        invs = {}
+        for name, op in (("bf16", kb), ("f32", k32)):
+            vb = {n: t.to(op.dtype) for n, t in v.items()}
+            (invs[name], _), row[f"{name}_{item}_inverse_ms"] = timed(torch, lambda: (
+                lambda inv: (inv, inv @ vb))(op.inverse(damping=BF16_DAMPING, **kw)))
+        compare(f"{item}_inverse_matvec", invs["bf16"], invs["f32"], v)
+        del invs
+    del kfacs, kb, k32, twin
+    torch.cuda.empty_cache()
+
+    gmodel, gparams, _, gdata = float32_twin(ggn_problem, copy.deepcopy)
+    G_b = GGNLinearOperator(ggn_problem.model, loss, ggn_problem.params, ggn_problem.data,
+                            check_deterministic=False)
+    G_32 = GGNLinearOperator(gmodel, loss, gparams, gdata, check_deterministic=False)
+    v = {n: torch.randn(t.shape, generator=gen, device=t.device)
+         for n, t in ggn_problem.params.items()}
+    compare("ggn_matvec", G_b, G_32, v)
+    for name, op in (("bf16", G_b), ("f32", G_32)):
+        vb = {n: t.to(op.dtype) for n, t in v.items()}
+        row[f"{name}_ggn_matvec_ms"] = statistics.median(
+            event_times(lambda: op @ vb, torch, reps=BF16_GGN_REPS, warmups=1))
+    del G_b, G_32, gmodel, gparams, gdata, v
+    torch.cuda.empty_cache()
+    if not (row["factor_dtypes"] == ["torch.float32"]
+            and row["worst_factor_rel_err"] < tols["factor"]):
+        raise RuntimeError(f"bfloat16 {label}, factors: {row}")
+    bf16_report(label, tols=tols, kernel_tols=BF16_KERNEL_TOLS, damping=BF16_DAMPING,
+                timing="builds and inverses: host clock ending in a synchronize; KFAC "
+                       "matvec: CUDA events, median of 20; GGN matvec: median of "
+                       f"{BF16_GGN_REPS}", card=smi, **row)
+    return launches
+
+
+def bf16_phases(torch, dev, smi: str) -> dict:
+    """The JAX package's speed mode on the card: ResNet-18/CIFAR-10 at batch
+    512 and the flash GPT-2 small at batch 4, T = 1024, with parameters and
+    inputs in bfloat16 (:func:`bf16_model`; the GPT's GGN on its einsum twin
+    of the same seed, since the flash kernels have no forward mode), each
+    against a float32 twin carrying the same bfloat16-valued weights. Kernel
+    1 launches 19 times a ResNet-18 build, and kernels 2-4 24 / 12 / 12 a
+    GPT build (the collector's verification forward and the tapped forward,
+    one backward), all on bfloat16 inputs and each within its tolerance of
+    its plain version; the GPT's results within ``BF16_REL_TOL`` of float32,
+    ResNet-18's within ``BF16_RESNET_TOLS``. Returns the phase's launches by
+    kernel (the float32 twins' builds included)."""
+    from curvlinops_tpu_torch.models.gpt import GPTConfig, shakespeare_nanogpt
+    from curvlinops_tpu_torch.models.resnet import cifar10_resnet18
+
+    bf16 = torch.bfloat16
+    print(f"bfloat16 phase: ResNet-18 B={BATCH} and GPT-2 small B={GPT_BATCH} in bfloat16 "
+          f"against float32 twins, TF32 off [{smi}]")
+    resnet = cifar10_resnet18(batch_size=BATCH, seed=0, dtype=bf16, device=dev)
+    launches = bf16_model(torch, f"ResNet-18/CIFAR-10, B={BATCH}, bfloat16", resnet, resnet,
+                          {"conv_input_covariance": RESNET_CONV_LAUNCHES}, BF16_RESNET_TOLS, smi)
+    del resnet
+    torch.cuda.empty_cache()
+    config = GPT_CONFIG or GPTConfig()
+    L = config.n_layer
+    flash = shakespeare_nanogpt(GPT_BATCH, config, seed=0, dtype=bf16, device=dev,
+                                attention_impl="flash")
+    einsum = shakespeare_nanogpt(GPT_BATCH, config, seed=0, dtype=bf16, device=dev,
+                                 attention_impl="einsum")
+    gpt = bf16_model(torch, f"GPT-2 small (flash; GGN on einsum), B={GPT_BATCH}, "
+                            f"T={config.block_size}, bfloat16", flash, einsum,
+                     {"fwd": 2 * L, "bwd_dkv": L, "bwd_dq": L},
+                     dict.fromkeys(BF16_ITEMS, BF16_REL_TOL), smi)
+    del flash, einsum
+    torch.cuda.empty_cache()
+    for n, c in gpt.items():
+        launches[n] = launches.get(n, 0) + c
+    return {("conv_input_covariance" if n == "conv_input_covariance" else f"flash_attention_{n}"):
+            c for n, c in launches.items()}
+
+
+# ---------------------------------------------------------------------- #
+# LOBPCG at k = 40 on KFAC: the small-eigh kernel past its old limit
+# ---------------------------------------------------------------------- #
+LARGE_K = 40  # [40, 40] Gram and [120, 120] Rayleigh-Ritz problems: both kernel routes
+LARGE_K_ITERS = 40  # the iteration cap: tol = 1e-12 never stops a float32 run
+LARGE_K_RITZ_TOL = 1e-3  # the Ritz values against the exact top k, relative
+LARGE_K_CAPTURED_TOL = 1e-5  # captured against eager, relative
+
+
+def kfac_top_eigenvalues(torch, kfac, k: int) -> "torch.Tensor":
+    """The exact top ``k`` eigenvalues of a KFAC operator, float64: each
+    group's Kronecker eigenvalues are the products of its factors'
+    eigenvalues (``eigvalsh`` in float64), the top ``k`` over all groups."""
+    spectra = []
+    for gi in range(len(kfac.groups)):
+        mu = torch.linalg.eigvalsh(kfac._ggT[gi].double())
+        lam = (torch.linalg.eigvalsh(kfac._aaT[gi].double()) if gi in kfac._aaT
+               else torch.ones(1, dtype=torch.float64, device=mu.device))
+        spectra.append(torch.outer(mu, lam).reshape(-1).topk(min(k, mu.numel() * lam.numel()))[0])
+    return torch.cat(spectra).topk(k)[0]
+
+
+def lobpcg_large_k_phases(torch, dev, smi: str) -> dict:
+    """LOBPCG at ``k = 40`` on ResNet-18's MC KFAC (B=512, float32; its
+    products are cheap and it is ``capturable``), eager and captured from
+    one start block with ``tol = 1e-12`` and ``LARGE_K_ITERS`` iterations:
+    the 40 Ritz values within ``LARGE_K_RITZ_TOL`` of the exact top 40,
+    captured within ``LARGE_K_CAPTURED_TOL`` of eager, the small problems
+    through both of the kernel's routes (the ``[40, 40]`` Gram matrices
+    shared, the ``[120, 120]`` Rayleigh-Ritz matrices global; launches
+    counted by route in the wrapper, where the host launches: a replay of
+    the captured loop launches without it and adds none). Each route timed
+    on the run's second matrix of its size against the plain version and
+    ``torch.linalg.eigh``, and held to ``eigh`` in float64. Returns the
+    conv launches and the ``port_kernels`` entries of both routes."""
+    from curvlinops_tpu_torch import KFACLinearOperator
+    from curvlinops_tpu_torch.kfac import kernels
+    from curvlinops_tpu_torch.models.resnet import cifar10_resnet18
+    from curvlinops_tpu_torch.solvers import eigsh as teigsh
+    from curvlinops_tpu_torch.solvers import small_eigh as se
+    from curvlinops_tpu_torch.solvers.lanczos import start_vector
+    from curvlinops_tpu_torch.utils.graphs import ChunkedLoop
+
+    problem = cifar10_resnet18(batch_size=BATCH, seed=0, device=dev)
+    kernels.conv_input_covariance.launches = 0
+    kfac, build_ms = timed(torch, lambda: KFACLinearOperator(
+        problem.model, problem.loss_fn, problem.kfac_params, problem.data, fisher_type="mc",
+        check_deterministic=False))
+    conv_launches = kernels.conv_input_covariance.launches
+    exact = kfac_top_eigenvalues(torch, kfac, LARGE_K)
+    print(f"LOBPCG k={LARGE_K} on ResNet-18's MC KFAC ({kfac.shape[0]} parameters, "
+          f"{len(kfac.groups)} groups), B={BATCH}, float32, TF32 off [{smi}]")
+    kernel, kept = teigsh.small_eigh, {}
+    sizes = {"shared": LARGE_K, "global": 3 * LARGE_K}
+
+    def keeping(M, *args, **kwargs):  # each timed size's first two matrices
+        if M.shape[-1] in sizes.values() and len(kept.get(M.shape[-1], [])) < 2:
+            kept.setdefault(M.shape[-1], []).append(M.detach().clone())
+        return kernel(M, *args, **kwargs)
+
+    X0 = start_vector(kfac, torch.Generator(dev).manual_seed(13), (kfac.shape[1], LARGE_K))
+    runs, row = {}, {}
+    launched = dict.fromkeys(sizes, 0)
+    # eager first: the captured loop's graph pool (about 32 GiB at k = 40)
+    # stays cached on the operator, and the eager run's tensors would not fit
+    # beside it
+    for mode, capture in (("eager", False), ("captured", "auto")):
+        torch.cuda.empty_cache()
+        se.small_eigh.route_launches.update(dict.fromkeys(sizes, 0))
+        teigsh.small_eigh = keeping
+        try:
+            runs[mode], row[f"{mode}_ms"] = timed(torch, lambda: teigsh.topk_eigenpairs(
+                kfac, LARGE_K, maxiter=LARGE_K_ITERS, tol=LOBPCG_TOL, X0=X0, capture=capture))
+        finally:
+            teigsh.small_eigh = kernel
+        row[f"{mode}_small_eigh_launches"] = dict(se.small_eigh.route_launches)
+        for r in sizes:
+            launched[r] += se.small_eigh.route_launches[r]
+    loops = [p for p in kfac._program_cache[1].values() if isinstance(p, ChunkedLoop)]
+    (w_c, U_c), (w_e, _) = runs["captured"], runs["eager"]
+    ritz_err = ((w_c.double() - exact).abs() / exact).max()
+    row.update(
+        iterations=loops[0].iterations if loops else None,
+        host_reads=loops[0].host_reads if loops else None,
+        capture_s=loops[0].capture_seconds if loops else None,
+        ritz_rel_err_max=float(ritz_err),
+        ritz_rel_err_last=float((w_c[-1].double() - exact[-1]).abs() / exact[-1]),
+        captured_vs_eager=rel_err(w_c, w_e),
+        orthonormality=float((U_c.T @ U_c - torch.eye(LARGE_K, device=dev)).abs().max()),
+        exact_first=float(exact[0]), exact_last=float(exact[-1]), kfac_build_ms=build_ms,
+        conv_kernel_launches=conv_launches)
+    cs_report(f"LOBPCG k={LARGE_K}, maxiter {LARGE_K_ITERS}, tol {LOBPCG_TOL}, MC KFAC",
+              ritz_tol=LARGE_K_RITZ_TOL, captured_tol=LARGE_K_CAPTURED_TOL,
+              small_eigh_launches_counted="host launches; a graph replay adds none",
+              card=smi, **row)
+    if not (len(loops) == 1 and conv_launches == RESNET_CONV_LAUNCHES
+            and row["ritz_rel_err_max"] <= LARGE_K_RITZ_TOL
+            and row["captured_vs_eager"] <= LARGE_K_CAPTURED_TOL
+            and all(c > 0 for m in runs for c in row[f"{m}_small_eigh_launches"].values())
+            and all(len(kept.get(n, [])) == 2 for n in sizes.values())):
+        raise RuntimeError(f"LOBPCG k={LARGE_K}: {row}")
+    del runs, U_c, X0, loops, kfac, problem  # a loop holds its graph's pool
+    torch.cuda.empty_cache()
+
+    # each route on the run's second matrix of its size, against float64
+    # eigh (float32 eigh is itself off by about n eps)
+    entries = []
+    for route, n in sizes.items():
+        M = kept[n][1]
+        w_p, _ = se.small_eigh_plain(M)
+        w_64, V_64 = se.small_eigh_plain(M.double())
+        scale = float(w_64.abs().max())
+        sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+        w_k, V_k = (t[0] for t in se.small_eigh(M[None], sweeps))
+        n_sweeps = int(sweeps[0])
+        k_ms, p_ms = alternated_ms(lambda: se.small_eigh_plain(M), lambda: se.small_eigh(M),
+                                   torch)
+        lib_ms = time_ms(lambda: torch.linalg.eigh(M), torch)
+        err = rel_err(w_k, w_64)
+        sub = cluster_projector_error(w_k.double(), V_k.double(), w_64, V_64, EIGH_GAP * scale)
+        tol = 20 * n * 2.0**-23  # the card tests' bound, relative
+        # Jacobi: per sweep n - 1 rounds of n / 2 rotations, each 18 n flops on
+        # two rows and two columns of A and V; bytes: A read, w and V written
+        ops_ms = 9 * n**3 * n_sweeps / PEAK_F32_SIMT_FLOPS * 1e3
+        bytes_ms = (2 * n * n + n) * 4 / PEAK_BYTES_PER_S * 1e3
+        bound_ms, bound_by = max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+        entry = {"name": f"small_eigh ({route} route, [{n}, {n}] float32)", "route": "cuda",
+                 "source": "curvlinops_tpu_torch/solvers/csrc/small_eigh.cu", "replaces": None,
+                 "launches": launched[route],
+                 "max_abs_err": float((w_k.double() - w_64).abs().max()),
+                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": lib_ms}
+        entries.append(entry)
+        cs_report(f"small_eigh kernel, {route} route, LOBPCG's [{n}, {n}] matrix",
+                  sweeps=n_sweeps, eigenvalues_rel_err_vs_float64=err, tol=tol,
+                  float32_eigh_rel_err_vs_float64=rel_err(w_p, w_64), subspace_err=sub,
+                  subspace_tol=tol / EIGH_GAP, timing="CUDA events, median of 20, alternated",
+                  card=smi, **entry)
+        if not (se.kernel_route(n) == route and err <= tol and sub <= tol / EIGH_GAP):
+            raise RuntimeError(f"small_eigh {route} route against eigh at n = {n}: {entry}")
+    return {"launches": {"conv_input_covariance": conv_launches}, "small_eigh": entries}
 
 if __name__ == "__main__":
     main()

@@ -21,6 +21,25 @@ With ``mc_samples > 0`` the loss Hessian is replaced by ``sum_k g_k g_k^T``
 with sampled grad-output vectors (MC Fisher). The samples come from the
 per-batch generator (:func:`~curvlinops_tpu_torch.risk.batch_generator`),
 so repeated and chained matvecs see the same samples.
+
+Example:
+    >>> import torch
+    >>> from torch import nn
+    >>> from curvlinops_tpu_torch import GGNLinearOperator, HessianLinearOperator
+    >>> from curvlinops_tpu_torch.losses import MSELoss
+    >>> gen = torch.Generator().manual_seed(0)
+    >>> model = nn.Linear(5, 3, bias=False)
+    >>> X, y = torch.rand((8, 5), generator=gen), torch.rand((8, 3), generator=gen)
+    >>> args = (model, MSELoss("mean"), dict(model.named_parameters()), [(X, y)])
+    >>> G, H = GGNLinearOperator(*args), HessianLinearOperator(*args)
+    >>> v = torch.randn(15, generator=gen)
+    >>> # for a LINEAR model the GGN equals the Hessian
+    >>> bool(torch.allclose(G @ v, H @ v, atol=1e-5))
+    True
+    >>> # MC Fisher: sampled grad-outputs, deterministic across matvecs
+    >>> F = GGNLinearOperator(*args, mc_samples=8, seed=0, check_deterministic=False)
+    >>> bool(torch.allclose(F @ v, F @ v))
+    True
 """
 
 from __future__ import annotations

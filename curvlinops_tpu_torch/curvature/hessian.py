@@ -5,6 +5,26 @@ per-batch kernel is the forward-over-reverse Hessian-vector product,
 ``torch.func.jvp`` of ``torch.func.grad`` of the batch loss, mapped over
 the matmat's columns (:func:`vmap_columns`): the primal forward and
 backward run once per batch, the tangents batched over the columns.
+
+Example:
+    >>> import torch
+    >>> from torch import nn
+    >>> from curvlinops_tpu_torch import HessianLinearOperator
+    >>> from curvlinops_tpu_torch.losses import MSELoss
+    >>> gen = torch.Generator().manual_seed(0)
+    >>> D_in, D_out, N = 4, 2, 10
+    >>> model = nn.Linear(D_in, D_out, bias=False)
+    >>> X = torch.rand((N, D_in), generator=gen)
+    >>> y = torch.rand((N, D_out), generator=gen)
+    >>> data = [(X[:5], y[:5]), (X[5:], y[5:])]
+    >>> H = HessianLinearOperator(
+    ...     model, MSELoss(reduction="sum"), dict(model.named_parameters()), data
+    ... )
+    >>> # analytic Hessian of sum-MSE for a linear model: 2 I_Dout (x) X^T X
+    >>> H_mat = 2 * torch.kron(torch.eye(D_out), X.T @ X)
+    >>> v = torch.randn(D_in * D_out, generator=gen)
+    >>> bool(torch.allclose(H_mat @ v, H @ v, atol=1e-5))
+    True
 """
 
 from __future__ import annotations

@@ -351,8 +351,7 @@ class KFACComputer:
             and conv_cov_kernel_supported(tuple(x.shape), use.meta)
         ):
             # fused patch extraction + covariance: no [B, S, d] patch tensor
-            cov, S = conv_input_covariance(x, use.meta, bias_pad)
-            return cov.float(), S
+            return conv_input_covariance(x, use.meta, bias_pad)
         return kmath.input_covariance(x, use.kind, use.meta, self.kfac_approx, bias_pad)
 
     @staticmethod

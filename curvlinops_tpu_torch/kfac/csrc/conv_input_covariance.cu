@@ -53,7 +53,10 @@
 //     accumulator with a rounded add;
 //   * a second kernel sums the splits in a fixed order (no atomics, so the
 //     result is deterministic), mirrors the lower triangle through shared
-//     memory (coalesced reads and writes) and casts to the output type.
+//     memory (coalesced reads and writes) and writes float32 for either
+//     input type: rounded to bfloat16, a covariance is indefinite by about
+//     2^-9 of its norm, enough for a KFAC inverse with exact damping to
+//     divide by eigenvalue products near minus the damping.
 
 #include "../../csrc/tf32_mma.cuh"
 
@@ -255,16 +258,15 @@ cov_tiles_kernel(const T* __restrict__ x, float* __restrict__ ws, const Geometry
     }
 }
 
-// Sum the splits in order, mirror the lower triangle, cast to the output type.
+// Sum the splits in order, mirror the lower triangle, write float32.
 // One CTA of 32 x 8 threads per 32x32 block of out (inside one TILE block,
 // so it is above the computed tiles or below them as a whole). A block below
 // reads its mirror image row by row, as it lies in ws, and writes it
 // transposed through shared memory: both sides coalesced.
 constexpr int RB = 32;  // edge of a reduce block
 
-template <typename TO>
 __global__ void __launch_bounds__(RB * 8)
-reduce_mirror_kernel(const float* __restrict__ ws, TO* __restrict__ out, int d, int splits) {
+reduce_mirror_kernel(const float* __restrict__ ws, float* __restrict__ out, int d, int splits) {
   __shared__ float block[RB][RB + 1];
   const int64_t dd = static_cast<int64_t>(d) * d;
   const int i0 = blockIdx.y * RB, j0 = blockIdx.x * RB;
@@ -281,8 +283,7 @@ reduce_mirror_kernel(const float* __restrict__ ws, TO* __restrict__ out, int d, 
   for (int r = threadIdx.y; r < RB; r += 8) {
     const int i = i0 + r, j = j0 + threadIdx.x;
     if (i < d && j < d)
-      out[static_cast<int64_t>(i) * d + j] =
-          from_f<TO>(below ? block[threadIdx.x][r] : block[r][threadIdx.x]);
+      out[static_cast<int64_t>(i) * d + j] = below ? block[threadIdx.x][r] : block[r][threadIdx.x];
   }
 }
 
@@ -299,8 +300,8 @@ int launch(const void* x, void* ws, void* out, const Geometry& g, int splits,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>((g.d + RB - 1) / RB);
-  reduce_mirror_kernel<T><<<dim3(blocks, blocks), dim3(RB, 8), 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<T*>(out), g.d, splits);
+  reduce_mirror_kernel<<<dim3(blocks, blocks), dim3(RB, 8), 0, stream>>>(
+      static_cast<const float*>(ws), static_cast<float*>(out), g.d, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -308,7 +309,7 @@ int launch(const void* x, void* ws, void* out, const Geometry& g, int splits,
 
 // x: contiguous NHWC input, 16-byte aligned, C % 8 == 0, fewer than 2^31
 // elements (so B * Ho * Wo < 2^31);
-// ws: [splits, d, d] fp32 scratch; out: [d, d] in x's type; rows_per_split a
+// ws: [splits, d, d] fp32 scratch; out: [d, d] fp32; rows_per_split a
 // multiple of 32.
 // Returns the CUDA error code of the launches (0 on success).
 extern "C" int conv_input_covariance(const void* x, void* ws, void* out, int is_bf16,

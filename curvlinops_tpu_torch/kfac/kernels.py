@@ -86,10 +86,10 @@ def conv_input_covariance_plain(
     """Plain PyTorch version: ``F.pad`` + ``unfold``, (KH, KW, C) reorder, matmul.
 
     Returns:
-        ``(cov [d, d] in x.dtype, S = Ho*Wo)``, accumulated in float32.
+        ``(cov [d, d], S = Ho*Wo)``, accumulated and returned in float32 for a
+        float32 or bfloat16 ``x``.
     """
-    cov, S = kmath.input_covariance(x, "conv", meta, KFACType.EXPAND, bias_pad=bias_pad)
-    return cov.to(x.dtype), S
+    return kmath.input_covariance(x, "conv", meta, KFACType.EXPAND, bias_pad=bias_pad)
 
 
 def _splits(n_tiles: int, R: int, n_sms: int) -> tuple[int, int]:
@@ -115,7 +115,7 @@ def conv_input_covariance(
             joint weight+bias groups.
 
     Returns:
-        ``(cov [d, d] in x.dtype, S = Ho*Wo)`` with ``d = KH*KW*C (+1)`` in
+        ``(cov [d, d] float32, S = Ho*Wo)`` with ``d = KH*KW*C (+1)`` in
         the (KH, KW, C) order, accumulated in float32.
 
     Raises:
@@ -147,7 +147,10 @@ def conv_input_covariance(
     if x_nhwc.data_ptr() % 16:  # the kernel gathers 16-byte chunks
         x_nhwc = x_nhwc.clone()
     ws = torch.empty((splits, d, d), dtype=torch.float32, device=x.device)
-    out = torch.empty((d, d), dtype=x.dtype, device=x.device)
+    # float32 for bfloat16 inputs too: a covariance rounded to bfloat16 is
+    # indefinite by about 2^-9 of its norm, and exact damping then divides by
+    # eigenvalue products near -damping
+    out = torch.empty((d, d), dtype=torch.float32, device=x.device)
     # the library sets its attributes and launches on the current device
     with torch.cuda.device(x.device):
         err = lib.conv_input_covariance(

@@ -82,7 +82,15 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(shape))
 
     def forward(self, x: torch.Tensor, *layer: int) -> torch.Tensor:  # noqa: D102
-        return F.layer_norm(x, (x.shape[-1],), self.scale[layer], self.bias[layer], _LN_EPS)
+        scale, bias = self.scale[layer], self.bias[layer]
+        if x.dtype in (torch.bfloat16, torch.float16):
+            # in float32, rounded once: CUDA's fused kernel keeps its
+            # statistics in float32, so under forward mode (torch.func.jvp)
+            # its output's tangent came out float32, and the next reduced
+            # precision layer refused it
+            out = F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(), _LN_EPS)
+            return out.to(x.dtype)
+        return F.layer_norm(x, (x.shape[-1],), scale, bias, _LN_EPS)
 
 
 def attention(qkv: torch.Tensor, n_head: int, impl: str, causal: bool = True) -> torch.Tensor:

@@ -9,6 +9,19 @@ per-factor eigendecompositions. The damped Cholesky inverse retries in
 float64 when the factorization fails in the working precision. The
 embedding blocks (``G (x) diag(d)`` and its eigendecomposed form) keep the
 one-hot input covariance as a vector.
+
+Example:
+    >>> import torch
+    >>> from curvlinops_tpu_torch import KroneckerProductLinearOperator
+    >>> gen = torch.Generator().manual_seed(0)
+    >>> A = torch.randn((3, 3), generator=gen)
+    >>> B = torch.randn((4, 4), generator=gen)
+    >>> K = KroneckerProductLinearOperator(A, B)
+    >>> v = torch.randn(12, generator=gen)
+    >>> bool(torch.allclose(K @ v, torch.kron(A, B) @ v, atol=1e-5))
+    True
+    >>> bool(torch.allclose(K.trace(), torch.trace(A) * torch.trace(B), atol=1e-5))
+    True
 """
 
 from __future__ import annotations

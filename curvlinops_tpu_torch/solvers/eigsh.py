@@ -14,10 +14,13 @@ flag "fewer than k pairs converged" an iteration, or, in
 JAX's ``jit="auto"``), as a captured chunk of masked iterations cached on
 the operator, one host read a chunk. Its small symmetric eigenproblems go
 through :func:`~curvlinops_tpu_torch.solvers.small_eigh.small_eigh`, a
-kernel that reads nothing to the host (``torch.linalg.eigh`` does);
-``torch.linalg.qr`` of the ``[2k, k]`` block reads nothing either and is
-captured as it is. The start (the input check, the orthonormalization, the
-SVD that extends the basis, the first product) runs eagerly.
+kernel that reads nothing to the host (``torch.linalg.eigh`` does), while
+the ``[3k, 3k]`` Rayleigh-Ritz matrix is within the kernel's size limit;
+past it through ``torch.linalg.eigh``, eagerly (:func:`lobpcg_eigh`, the
+one place that chooses). ``torch.linalg.qr`` of the ``[2k, k]`` block reads
+nothing either and is captured as it is. The start (the input check, the
+orthonormalization, the SVD that extends the basis, the first product) runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -33,11 +36,23 @@ from curvlinops_tpu_torch.solvers.lanczos import (
     lanczos_extreme_eigenvalues,
     start_vector,
 )
-from curvlinops_tpu_torch.solvers.small_eigh import small_eigh
+from curvlinops_tpu_torch.solvers import small_eigh as _small_eigh
+from curvlinops_tpu_torch.solvers.small_eigh import small_eigh, small_eigh_plain
 from curvlinops_tpu_torch.utils.graphs import ChunkedLoop, EagerLoop
 
 # the way out named when LOBPCG's program cannot be captured
 LOBPCG_REMEDY = "pass `capture=False` to `topk_eigenpairs` to run LOBPCG eagerly"
+Eigh = Callable[[torch.Tensor], "tuple[torch.Tensor, torch.Tensor]"]
+
+
+def lobpcg_eigh(k: int) -> Eigh:
+    """LOBPCG's small symmetric eigensolver at block size ``k`` (eigenvalues
+    descending): the small-eigh kernel while the ``[3k, 3k]`` Rayleigh-Ritz
+    matrix is within its limit (``3k <= small_eigh.MAX_N``), for every small
+    problem of the run, so that eager and captured runs share one arithmetic;
+    past it ``torch.linalg.eigh``, which reads the host, so such a run is
+    not captured (:func:`topk_eigenpairs`)."""
+    return small_eigh if 3 * k <= _small_eigh.MAX_N else small_eigh_plain
 
 
 def _col_norms(X: torch.Tensor) -> torch.Tensor:
@@ -47,13 +62,13 @@ def _col_norms(X: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(X, dim=0, keepdim=True, dtype=torch.float64).to(X.dtype)
 
 
-def _svqb(X: torch.Tensor) -> torch.Tensor:
+def _svqb(X: torch.Tensor, eigh: Eigh) -> torch.Tensor:
     """A truncated orthonormal basis of ``X`` (SVQB): directions whose Gram
     eigenvalue is below ``eps`` times the largest come back as zero columns."""
     norms = _col_norms(X)
     X = X / torch.where(norms == 0, 1.0, norms)
     inner = X.T @ X
-    w, V = small_eigh(inner)
+    w, V = eigh(inner)
     tau = torch.finfo(X.dtype).eps * w[0]
     padded = torch.maximum(w, tau)
     sqrted = torch.where(tau > 0, padded, 1.0) ** -0.5
@@ -65,19 +80,19 @@ def _svqb(X: torch.Tensor) -> torch.Tensor:
     return orthoX / torch.where(keep, norms, 1.0)
 
 
-def _orthonormalize(basis: torch.Tensor) -> torch.Tensor:
+def _orthonormalize(basis: torch.Tensor, eigh: Eigh) -> torch.Tensor:
     for _ in range(2):  # twice is enough
-        basis = _svqb(basis)
+        basis = _svqb(basis, eigh)
     return basis
 
 
-def _project_out(basis: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+def _project_out(basis: torch.Tensor, U: torch.Tensor, eigh: Eigh) -> torch.Tensor:
     """The part of ``U`` orthogonal to the orthonormal (zero columns
     allowed) ``basis``, orthonormalized; suspicious columns are zeroed, and
     the last step is a subtraction of the basis."""
     for _ in range(2):
         U = U - basis @ (basis.T @ U)
-        U = _orthonormalize(U)
+        U = _orthonormalize(U, eigh)
     for _ in range(2):
         U = U - basis @ (basis.T @ U)
     return U * (_col_norms(U) >= 0.99)
@@ -113,17 +128,18 @@ def _check_inputs(A: Callable, X: torch.Tensor) -> None:
         raise ValueError(f"A must be ({n}, {n}) matrix A, got output {tuple(out.shape)}")
 
 
-def lobpcg_step(matmat: Callable, n: int, k: int, tol: float) -> Callable:
+def lobpcg_step(matmat: Callable, n: int, k: int, tol: float, eigh: Eigh) -> Callable:
     """One LOBPCG iteration on the state ``(X, P, R, theta)``, as a loop
     step (no constants); it goes on while fewer than ``k`` pairs have
-    converged."""
+    converged. ``eigh`` solves the small symmetric problems
+    (:func:`lobpcg_eigh`)."""
 
     def step(i, state: tuple, consts: tuple) -> tuple:
         X, P, R, _ = state
-        R = _project_out(torch.cat([X, P], dim=1), R)
+        R = _project_out(torch.cat([X, P], dim=1), R, eigh)
         XPR = torch.cat([X, P, R], dim=1)
         # Rayleigh-Ritz on the orthonormal (zero columns allowed) XPR
-        theta_all, Q = small_eigh(XPR.T @ matmat(XPR))
+        theta_all, Q = eigh(XPR.T @ matmat(XPR))
 
         B = Q[:, :k]
         B = B / _col_norms(B)
@@ -164,6 +180,8 @@ def lobpcg_standard(
         tol: A pair converges when ``||A v - lambda v|| < tol * 10 n
             (lambda + ||A v||)``; the dtype's ``eps`` when ``None``.
         loop: Drives the iterations (an :class:`EagerLoop` when ``None``).
+            A captured loop needs the small-eigh kernel, so ``3k`` within
+            its limit (:func:`lobpcg_eigh`).
 
     Returns:
         ``(theta [k], U [n, k], iterations)``, the eigenvalues in
@@ -178,15 +196,16 @@ def lobpcg_standard(
     if tol is None:
         tol = torch.finfo(X.dtype).eps
 
-    X = _orthonormalize(X)
+    eigh = lobpcg_eigh(k)
+    X = _orthonormalize(X, eigh)
     P = _extend_basis(X, k)
     AX = matmat(X)
     theta = (X * AX).sum(0, keepdim=True)
     R = AX - theta * X
     loop = EagerLoop() if loop is None else loop
     running = torch.ones((), dtype=torch.bool, device=X.device)  # no pair converged yet
-    (X, _, _, theta), i, _ = loop(lobpcg_step(matmat, n, k, tol), m, (X, P, R, theta), (),
-                                  running)
+    (X, _, _, theta), i, _ = loop(lobpcg_step(matmat, n, k, tol, eigh), m, (X, P, R, theta),
+                                  (), running)
     return theta[0], X, i
 
 
@@ -212,20 +231,41 @@ def topk_eigenpairs(
         capture: Run the iterations as a captured program cached on ``A``
             (under ``("lobpcg", k, maxiter, tol, dtype)``; the counterpart of
             JAX's ``jit``): ``"auto"`` whenever ``A`` is a ``capturable``
-            :class:`~curvlinops_tpu_torch.ops.base.LinearOperator`, ``True``
-            requires one, ``False`` runs the eager loop.
+            :class:`~curvlinops_tpu_torch.ops.base.LinearOperator` and ``k``
+            is within the small-eigh kernel's limit, ``True`` requires both,
+            ``False`` runs the eager loop.
+
+    The small eigenproblems' route, chosen once for the run by ``k``
+    (:func:`lobpcg_eigh`; JAX's takes any ``k`` with ``5k < dim``):
+
+    - ``3k <= 512`` (``small_eigh.MAX_N``): the ``[3k, 3k]`` Rayleigh-Ritz
+      and ``[k, k]`` Gram problems go through the small-eigh kernel on the
+      card, in the start, the eager loop and the captured loop alike;
+    - ``3k > 512``: they go through ``torch.linalg.eigh``, which reads the
+      host, so the loop runs eagerly: ``capture="auto"`` runs it eagerly and
+      ``capture=True`` raises.
+
+    On the CPU both routes compute ``torch.linalg.eigh``.
 
     Returns:
         ``(eigenvalues [k] descending, eigenvectors [dim, k])``.
 
     Raises:
         ValueError: If ``capture=True`` and ``A`` is not a ``capturable``
-            operator.
+            operator, or ``3k`` is past the kernel's limit.
     """
     X = X0 if X0 is not None else start_vector(A, generator, (A.shape[0], k))
     can = isinstance(A, LinearOperator) and A.capturable
     if capture is True and not can:
         raise ValueError("capture=True needs a `capturable` LinearOperator.")
+    if lobpcg_eigh(k) is small_eigh_plain:
+        if capture is True:
+            raise ValueError(
+                f"capture=True: LOBPCG at k={k} solves [{3 * k}, {3 * k}] Rayleigh-Ritz "
+                f"problems, past the small-eigh kernel's limit of {_small_eigh.MAX_N} "
+                f"(3k <= {_small_eigh.MAX_N}), and torch.linalg.eigh cannot be captured; "
+                f"{LOBPCG_REMEDY}.")
+        can = False
     loop = None
     matmat = lambda V: A @ V  # noqa: E731
     if can and capture:

@@ -462,3 +462,103 @@ def test_jacobian_held_batches_match_streamed_and_jax_lsmr(jx):
     assert inv.lsmr_info["iterations"] == int(info_j["iterations"]) == 7
     assert inv.lsmr_info["host_reads"] == math.ceil(7 / CHUNK)
     assert_close(x, np.asarray(x_j), **F64, name="LSMR over J")
+
+
+# ---------------------------------------------------------------------- #
+# LOBPCG's route to its small eigenproblems
+# ---------------------------------------------------------------------- #
+# n: the small-eigh kernel's route, either type. The shared route (256
+# threads, A and V^T in shared memory) to n = 44, where the global route
+# (1024 threads, A and V^T in a device-memory workspace) overtook it on an
+# H100; the global route to 512.
+KERNEL_ROUTES = {
+    1: "shared", 44: "shared", 45: "global", 96: "global", 97: "global", 118: "global",
+    119: "global", 136: "global", 137: "global", 160: "global", 161: "global", 512: "global",
+    513: None,
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", sorted(KERNEL_ROUTES))
+def test_small_eigh_kernel_route(n, dtype):
+    """The kernel's route by size, and the size limit that ``small_eigh``
+    enforces on the card (its CPU path takes any size)."""
+    from curvlinops_tpu_torch.solvers import small_eigh as se
+
+    assert se.kernel_route(n) == KERNEL_ROUTES[n]
+    assert se.MAX_N == 512 and se.SHARED_MAX_N == 44
+    A = torch.eye(n, dtype=dtype)
+    w, V = se.small_eigh(A)  # the CPU's plain version, descending
+    assert w.shape == (n,) and V.shape == (n, n) and bool((w == 1).all())
+
+
+def _spectrum_operator(dim: int, k: int, dtype, seed: int):
+    """A dense symmetric ``[dim, dim]`` operator with known eigenvalues: the
+    top ``k`` evenly in [1, 2], the rest in [0, 0.5] (a gap LOBPCG closes in
+    a few iterations), eigenvectors from a seeded QR."""
+    rng = np.random.default_rng(seed)
+    Q = torch.linalg.qr(torch.from_numpy(rng.standard_normal((dim, dim))))[0].numpy()
+    lam = np.concatenate([np.linspace(2.0, 1.0, k), rng.uniform(0.0, 0.5, dim - k)])
+    M = (Q * lam) @ Q.T
+    return M, np.sort(lam)[::-1], rng.standard_normal((dim, k))
+
+
+# k with 3k at and around the kernel's limits: 96 (the old limit) and 99,
+# 159 and 162 (around float32's shared route), 510 and 513 (MAX_N = 512)
+ROUTE_KS = [32, 33, 53, 54, 170, 171]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("capture", ["auto", False], ids=["captured", "eager"])
+@pytest.mark.parametrize("k", ROUTE_KS)
+def test_topk_eigenpairs_small_eigh_route(monkeypatch, k, capture, dtype):
+    """``topk_eigenpairs``' one route choice: while ``3k <= 512`` every
+    small problem (start, eager or chunked loop) goes to ``small_eigh``
+    (the kernel on the card) and ``capture="auto"`` caches a chunked loop;
+    past it every one goes to ``small_eigh_plain`` (``torch.linalg.eigh``),
+    ``"auto"`` runs eagerly (no program cached) and ``capture=True`` raises
+    naming the limit and the way out. Two iterations on a dense operator of
+    dimension ``5k + 4``."""
+    calls = {"kernel": [], "plain": []}
+    for name, key in (("small_eigh", "kernel"), ("small_eigh_plain", "plain")):
+        fn = getattr(teigsh, name)
+        monkeypatch.setattr(teigsh, name, lambda M, *a, _fn=fn, _key=key, **kw: (
+            calls[_key].append(M.shape[-1]), _fn(M, *a, **kw))[1])
+    dim = 5 * k + 4
+    M, _, X0 = _spectrum_operator(dim, k, np.float64, seed=k)
+    A = T.MatrixLinearOperator(torch.from_numpy(M).to(dtype))
+    fits = 3 * k <= 512
+    if not fits:
+        with pytest.raises(ValueError, match=r"(?s)\[513, 513\].*512.*capture=False"):
+            teigsh.topk_eigenpairs(A, k=k, maxiter=2, X0=torch.from_numpy(X0).to(dtype),
+                                   capture=True)
+        assert not calls["kernel"] and not calls["plain"]
+    w, V = teigsh.topk_eigenpairs(A, k=k, maxiter=2, X0=torch.from_numpy(X0).to(dtype),
+                                  capture=capture)
+    assert w.shape == (k,) and V.shape == (dim, k) and w.dtype == dtype
+    assert bool(torch.isfinite(w).all()) and bool((w[:-1] >= w[1:]).all())
+    used, unused = ("kernel", "plain") if fits else ("plain", "kernel")
+    assert not calls[unused] and set(calls[used]) == {k, 3 * k}
+    cached = "_program_cache" in A.__dict__ and any(
+        isinstance(p, ChunkedLoop) for p in A._program_cache[1].values())
+    assert cached == (fits and capture == "auto")
+
+
+def test_topk_eigenpairs_k33_matches_jax():
+    """k = 33 (a ``[99, 99]`` Rayleigh-Ritz problem, past the kernel's old
+    limit of 96) on a 200 x 200 dense operator of known spectrum, float64:
+    captured (``"auto"``) and eager against the exact top 33 and JAX's
+    jitted ``topk_eigenpairs`` (to 1e-10), and each other (1e-10)."""
+    k, dim = 33, 200
+    M, lam, X0 = _spectrum_operator(dim, k, np.float64, seed=5)
+    with jax.enable_x64(True):
+        w_j = np.asarray(cl.topk_eigenpairs(cl.MatrixLinearOperator(jnp.asarray(M)), k=k,
+                                            maxiter=100, key=jax.random.key(3))[0])
+    A = T.MatrixLinearOperator(torch.from_numpy(M))
+    w_f, V_f = teigsh.topk_eigenpairs(A, k=k, maxiter=100, X0=torch.from_numpy(X0))
+    w_e, _ = teigsh.topk_eigenpairs(A, k=k, maxiter=100, X0=torch.from_numpy(X0), capture=False)
+    assert isinstance(A._program_cache[1][("lobpcg", k, 100, None, torch.float64)], ChunkedLoop)
+    assert_close(w_f, w_e.numpy(), **F64, name="captured vs eager")
+    assert_close(w_f, lam[:k], **F64, name="exact")
+    assert_close(w_f, w_j, **F64, name="JAX")
+    assert_close(V_f.T @ V_f, np.eye(k), rtol=0, atol=1e-10, name="orthonormal")

@@ -28,9 +28,13 @@ over a streamed MC GGN (resident or prefetched) running eagerly, an epoch
 bump freeing the graphs' pool, and a capture that cannot succeed raising;
 the captured solvers: the masked chunked loop (stops at a chunk's edges,
 one host read a replay), CG, MINRES, LSMR and LOBPCG captured against
-eager, the small-eigh kernel against ``torch.linalg.eigh``, each class
-marked ``capturable`` inside a Neumann series, and a step that reads the
-host raising with the program's name.
+eager, the small-eigh kernel against ``torch.linalg.eigh`` (to n = 512, by
+both of its routes), LOBPCG at k = 33 and 40 captured and eager and past
+the kernel's limit, each class marked ``capturable`` inside a Neumann
+series, and a step that reads the host raising with the program's name;
+the bfloat16 paths: KFAC's conv factors from the kernel positive
+semi-definite (an exact-damped inverse bounded), and the GPT under forward
+mode.
 
 These tests need the card: they skip without one. The card's machine has no
 JAX, so this file imports only the port, and runs there without the suite's
@@ -100,9 +104,9 @@ def rel_err(a, b) -> float:
 @pytest.mark.parametrize("bias_pad", [None, 1.0], ids=["nobias", "pad1"])
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))
 def test_kernel_matches_plain(cuda, geometry, bias_pad, dtype):
-    """Relative Frobenius error below 1e-5 in float32 (summation order
-    differs), below 1e-2 in bfloat16 (both round the float32 result to
-    bfloat16)."""
+    """Relative Frobenius error below 1e-5 for either input type: both
+    sides sum products exact in TF32 (bfloat16 inputs included) in float32,
+    in another order; the covariance is float32 for either input type."""
     kernel, stride, size = GEOMETRIES[geometry]
     meta = _meta(64, kernel, stride, size)
     gen = torch.Generator().manual_seed(0)
@@ -112,8 +116,8 @@ def test_kernel_matches_plain(cuda, geometry, bias_pad, dtype):
     plain, plain_S = kernels.conv_input_covariance_plain(x, meta, bias_pad)
     torch.cuda.synchronize()
     assert kernels.conv_input_covariance.launches == before + 1
-    assert S == plain_S and cov.dtype == dtype
-    assert rel_err(cov, plain) < (1e-5 if dtype == torch.float32 else 1e-2)
+    assert S == plain_S and cov.dtype == plain.dtype == torch.float32
+    assert rel_err(cov, plain) < 1e-5
 
 
 @pytest.mark.cuda
@@ -150,14 +154,14 @@ def _extreme(case, device, dtype):
 @pytest.mark.parametrize("case", list(EXTREMES))
 def test_kernel_matches_plain_at_the_extremes(cuda, case, bias_pad, dtype):
     """Few tiles over many rows (split over blockIdx.z), many tiles over few
-    rows, and C = 24: relative Frobenius error below 1e-5 in float32, below
-    1e-2 in bfloat16, as at the small geometries."""
+    rows, and C = 24: relative Frobenius error below 1e-5 for either input
+    type, as at the small geometries; float32 out."""
     x, meta = _extreme(case, cuda, dtype)
     cov, S = kernels.conv_input_covariance(x, meta, bias_pad)
     plain, plain_S = kernels.conv_input_covariance_plain(x, meta, bias_pad)
     torch.cuda.synchronize()
-    assert S == plain_S and cov.dtype == dtype
-    assert rel_err(cov, plain) < (1e-5 if dtype == torch.float32 else 1e-2)
+    assert S == plain_S and cov.dtype == plain.dtype == torch.float32
+    assert rel_err(cov, plain) < 1e-5
 
 
 @pytest.mark.cuda
@@ -197,6 +201,71 @@ def test_kfac_factors_kernel_path_match_plain_path(cuda):
         assert launches == (n_convs - 1 if use_kernel else 0)
     for gi, aaT in ops[True]._aaT.items():
         assert rel_err(aaT, ops[False]._aaT[gi]) < 1e-5
+
+
+@pytest.mark.cuda
+def test_bf16_kfac_conv_factors_psd_and_exact_inverse_bounded_on_card(cuda):
+    """A bfloat16 narrow ResNet (BatchNorm calibrated on its 8 images),
+    type-2 KFAC through the kernel: the kernel's covariances are float32
+    sums, not rounded to bfloat16, so every conv input factor is float32
+    and positive semi-definite to float32 rounding (smallest eigenvalue
+    above -1e-5 of the largest; rounded to bfloat16 they reach -1e-4 and
+    below), and the exact-damped inverse (damping 0.1) maps a vector to at
+    most 1 / 0.1 of its norm, as ``(K + 0.1 I)^-1`` of a PSD ``K`` must
+    (with the factors rounded, a ``[16 x 144]`` block's output grew 53-fold
+    past its float32 twin's)."""
+    gen = torch.Generator().manual_seed(0)
+    model = ResNet("basic", (1, 1, 1, 1), (16, 16, 32, 32), 10, stem_width=16)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(0.2 * torch.randn(p.shape, generator=gen))
+    model = model.to(cuda, torch.bfloat16)
+    X = torch.rand((8, 3, 16, 16), generator=gen).to(cuda, torch.bfloat16)
+    y = torch.randint(0, 10, (8,), generator=gen).to(cuda)
+    model.load_state_dict(tresnet.calibrate_bn(model, X), strict=False)
+    params = {n: p for n, p in model.named_parameters() if "bn" not in n}
+    before = kernels.conv_input_covariance.launches
+    kfac = KFACLinearOperator(model, CrossEntropyLoss("mean"), params, [(X, y)],
+                              fisher_type="type-2", check_deterministic=False)
+    assert kernels.conv_input_covariance.launches - before == 11  # all convs but the stem
+    for gi, aaT in kfac._aaT.items():
+        assert aaT.dtype == torch.float32
+        w = torch.linalg.eigvalsh(aaT.double())
+        assert float(w[0]) >= -1e-5 * float(w[-1]), kfac.groups[gi].name
+    inv = kfac.inverse(damping=0.1, use_exact_damping=True)
+    v = {n: torch.randn(p.shape, generator=gen).to(cuda, torch.bfloat16) for n, p in params.items()}
+    out = inv @ v
+    assert all(t.dtype == torch.bfloat16 for t in out.values())
+    norm = lambda tree: float(torch.cat([t.float().reshape(-1) for t in tree.values()]).norm())  # noqa: E731
+    assert norm(out) <= 1.02 * norm(v) / 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["ggn", "hessian"])
+def test_bf16_gpt_forward_mode_on_card(cuda, op):
+    """The bfloat16 einsum GPT (``TINY_GPT``) under forward mode on the card:
+    the GGN and Hessian matvecs run (CUDA's fused LayerNorm once gave its
+    output a float32 tangent, which the next bfloat16 layer refused), stay
+    bfloat16 and finite, and lie within 5e-2 of the float32 twin's (the
+    same bfloat16-valued weights)."""
+    import copy
+
+    from curvlinops_tpu_torch import HessianLinearOperator
+
+    p = tgpt.shakespeare_nanogpt(2, tgpt.TINY_GPT, seed=0, dtype=torch.bfloat16, device=cuda,
+                                 attention_impl="einsum")
+    twin = copy.deepcopy(p.model).float()
+    cls = {"ggn": GGNLinearOperator, "hessian": HessianLinearOperator}[op]
+    gen = torch.Generator().manual_seed(3)
+    v = {n: torch.randn(t.shape, generator=gen).to(cuda) for n, t in p.params.items()}
+    outs = []
+    for model, dtype in ((p.model, torch.bfloat16), (twin, torch.float32)):
+        A = cls(model, CrossEntropyLoss("mean"), dict(model.named_parameters()), p.data,
+                check_deterministic=False)
+        outs.append(A @ {n: t.to(torch.bfloat16).to(dtype) for n, t in v.items()})
+    assert all(t.dtype == torch.bfloat16 and bool(t.isfinite().all()) for t in outs[0].values())
+    flat = [torch.cat([o[n].double().reshape(-1) for n in v]) for o in outs]
+    assert float((flat[0] - flat[1]).norm() / flat[1].norm()) < 5e-2
 
 
 # ---------------------------------------------------------------------- #
@@ -1381,22 +1450,25 @@ def _cluster_projector_error(w, V, w_ref, V_ref, gap: float) -> float:
 @pytest.mark.cuda
 @pytest.mark.parametrize("repeated", [False, True], ids=["distinct", "repeated"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("n", [3, 12, 48, 96])
+@pytest.mark.parametrize("n", [3, 12, 44, 45, 48, 96])
 def test_small_eigh_kernel_matches_eigh_on_card(cuda, n, dtype, repeated):
     """The Jacobi kernel on a batch of three matrices against
-    ``torch.linalg.eigh`` (descending): eigenvalues within ``20 n eps`` of
-    the largest, residuals ``||A V - V diag(w)||`` and ``||V^T V - I||``
-    within ``20 n eps`` (times ``||A||``), and each cluster's projector
-    (eigenvalues closer than ``10^-2 ||A||``) within ``20 n eps ||A||`` over
-    the gap. Refuses n = 97 and integer matrices."""
+    ``torch.linalg.eigh`` (descending), by the shared route to n = 44 and
+    the global route past it (one launch, counted on its route): eigenvalues
+    within ``20 n eps`` of the largest, residuals ``||A V - V diag(w)||``
+    and ``||V^T V - I||`` within ``20 n eps`` (times ``||A||``), and each
+    cluster's projector (eigenvalues closer than ``10^-2 ||A||``) within
+    ``20 n eps ||A||`` over the gap. Refuses n = 513 and integer matrices."""
     from curvlinops_tpu_torch.solvers import small_eigh as se
 
     gen = torch.Generator().manual_seed(n)
     A = torch.stack([_symmetric(n, dtype, repeated, gen) for _ in range(3)]).to(cuda)
-    before = se.small_eigh.launches
+    before, routes = se.small_eigh.launches, dict(se.small_eigh.route_launches)
     w, V = se.small_eigh(A)
     torch.cuda.synchronize()
     assert se.small_eigh.launches == before + 1
+    routes[se.kernel_route(n)] += 1
+    assert se.small_eigh.route_launches == routes
     w_ref, V_ref = se.small_eigh_plain(A)
     tol = 20 * n * torch.finfo(dtype).eps
     for b in range(3):
@@ -1410,9 +1482,128 @@ def test_small_eigh_kernel_matches_eigh_on_card(cuda, n, dtype, repeated):
         err = _cluster_projector_error(wb, Vb, w_ref[b].double(), V_ref[b].double(), gap)
         assert err <= tol * scale / gap
     with pytest.raises(ValueError, match="square matrices"):
-        se.small_eigh(torch.eye(97, device=cuda))
+        se.small_eigh(torch.eye(513, device=cuda))
     with pytest.raises(TypeError, match="float32 or float64"):
         se.small_eigh(torch.eye(3, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [97, 128, 160, 161, 300, 512])
+def test_small_eigh_kernel_large_n_on_card(cuda, monkeypatch, n, dtype):
+    """The kernel past its old limit of 96, by its global route (A and V^T
+    in a device-memory workspace), on a batch of two matrices against
+    ``torch.linalg.eigh``:
+    eigenvalues within ``20 n eps`` of ``||A||``, ``||A V - V diag(w)||``
+    within ``20 n eps ||A||``, and ``||V^T V - I||`` in the spectral norm
+    within ``20 n eps`` (Jacobi's rounding grows about as ``n^1.5 eps`` in
+    the Frobenius norm, which the spectral norm divides by about
+    ``sqrt(n)``). The launch never reaches ``torch.linalg.eigh``."""
+    from curvlinops_tpu_torch.solvers import small_eigh as se
+
+    gen = torch.Generator().manual_seed(n)
+    A = torch.stack([_symmetric(n, dtype, repeated, gen) for repeated in (False, True)]).to(cuda)
+    w_ref, V_ref = se.small_eigh_plain(A)
+
+    def refuse(_):
+        raise AssertionError("small_eigh reached torch.linalg.eigh on the card")
+
+    monkeypatch.setattr(se, "small_eigh_plain", refuse)
+    monkeypatch.setattr(torch.linalg, "eigh", refuse)
+    before = se.small_eigh.launches
+    sweeps = torch.zeros(2, dtype=torch.int32, device=cuda)
+    w, V = se.small_eigh(A, sweeps)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert se.small_eigh.launches == before + 1 and w.dtype == V.dtype == dtype
+    assert 0 < int(sweeps.min()) and int(sweeps.max()) < se.MAX_SWEEPS
+    tol = 20 * n * torch.finfo(dtype).eps
+    eye = torch.eye(n, dtype=torch.float64, device=cuda)
+    for b in range(2):
+        Ab, scale = A[b].double(), float(A[b].double().norm())
+        wb, Vb = w[b].double(), V[b].double()
+        assert float((wb - w_ref[b].double()).abs().max()) <= tol * scale
+        assert bool((wb[:-1] >= wb[1:]).all())
+        assert float((Ab @ Vb - Vb * wb).norm()) <= tol * scale
+        assert float(torch.linalg.matrix_norm(Vb.T @ Vb - eye, ord=2)) <= tol
+
+
+def _known_spectrum(dim: int, k: int, gen):
+    """A dense float64 ``[dim, dim]`` symmetric matrix whose top ``k``
+    eigenvalues are ``linspace(2, 1, k)`` and the rest ``k / dim`` apart in
+    ``[0, 0.5]``: a gap LOBPCG closes in tens of iterations."""
+    Q = torch.linalg.qr(torch.randn((dim, dim), generator=gen, dtype=torch.float64))[0]
+    lam = torch.cat([torch.linspace(2.0, 1.0, k, dtype=torch.float64),
+                     torch.linspace(0.5, 0.0, dim - k, dtype=torch.float64)])
+    return (Q * lam) @ Q.T, lam
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capture", ["auto", True, False], ids=["auto", "true", "eager"])
+@pytest.mark.parametrize("k", [33, 40])
+def test_lobpcg_large_k_on_card(cuda, k, capture):
+    """LOBPCG past the kernel's old limit (``[99, 99]`` and ``[120, 120]``
+    Rayleigh-Ritz problems) on a dense capturable operator of known spectrum
+    (float64, dimension 256): the top ``k`` within 1e-8 of the exact
+    eigenvalues, orthonormal to 1e-8, through the small-eigh kernel (its
+    launches counted, ``torch.linalg.eigh`` never called); ``"auto"`` and
+    ``True`` cache a chunked loop, and equal the eager run to 1e-10."""
+    from curvlinops_tpu_torch import MatrixLinearOperator
+    from curvlinops_tpu_torch.solvers import small_eigh as se
+    from curvlinops_tpu_torch.solvers.eigsh import topk_eigenpairs
+    from curvlinops_tpu_torch.utils.graphs import ChunkedLoop
+
+    gen = torch.Generator().manual_seed(k)
+    M, lam = _known_spectrum(256, k, gen)
+    X0 = torch.randn((256, k), generator=gen, dtype=torch.float64).to(cuda)
+    A = MatrixLinearOperator(M.to(cuda))
+    eigh = torch.linalg.eigh
+    calls = []
+    try:
+        torch.linalg.eigh = lambda *a, **kw: (calls.append(1), eigh(*a, **kw))[1]
+        before = se.small_eigh.launches
+        w, V = topk_eigenpairs(A, k, maxiter=100, X0=X0, capture=capture)
+        torch.cuda.synchronize()
+        launches = se.small_eigh.launches - before
+    finally:
+        torch.linalg.eigh = eigh
+    assert not calls and launches > 0
+    assert float((w.cpu() - lam[:k]).abs().max()) <= 1e-8
+    assert float((V.T @ V - torch.eye(k, dtype=torch.float64, device=cuda)).abs().max()) <= 1e-8
+    cached = "_program_cache" in A.__dict__ and any(
+        isinstance(p, ChunkedLoop) for p in A._program_cache[1].values())
+    assert cached == (capture is not False)
+    if capture is not False:
+        w_e, _ = topk_eigenpairs(A, k, maxiter=100, X0=X0, capture=False)
+        assert rel_err(w, w_e) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_lobpcg_past_the_kernel_limit_on_card(cuda):
+    """``k = 171`` (a ``[513, 513]`` Rayleigh-Ritz problem, past the
+    kernel's 512): ``capture=True`` raises naming the limit and the way out,
+    ``"auto"`` runs eagerly through ``torch.linalg.eigh`` (no program
+    cached, no kernel launch), three iterations, finite and descending."""
+    from curvlinops_tpu_torch import MatrixLinearOperator
+    from curvlinops_tpu_torch.solvers import small_eigh as se
+    from curvlinops_tpu_torch.solvers.eigsh import topk_eigenpairs
+
+    from curvlinops_tpu_torch.utils.graphs import ChunkedLoop
+
+    k, dim = 171, 5 * 171 + 4
+    gen = torch.Generator().manual_seed(k)
+    M, _ = _known_spectrum(dim, k, gen)
+    A = MatrixLinearOperator(M.to(cuda))
+    X0 = torch.randn((dim, k), generator=gen, dtype=torch.float64).to(cuda)
+    with pytest.raises(ValueError, match=r"(?s)\[513, 513\].*512.*capture=False"):
+        topk_eigenpairs(A, k, maxiter=3, X0=X0, capture=True)
+    before = se.small_eigh.launches
+    w, V = topk_eigenpairs(A, k, maxiter=3, X0=X0)
+    torch.cuda.synchronize()
+    assert se.small_eigh.launches == before
+    assert "_program_cache" not in A.__dict__ or not any(
+        isinstance(p, ChunkedLoop) for p in A._program_cache[1].values())
+    assert w.shape == (k,) and bool(torch.isfinite(w).all()) and bool((w[:-1] >= w[1:]).all())
 
 
 def _uncaptured(A):
