@@ -162,24 +162,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     within 0.5 and its KFAC and inverse matvecs within 0.1; with both
     versions' times, and each build's garbage-collector pauses and device
     allocations;
-16. LOBPCG at k = 40 (``lobpcg_large_k_phases``) on ResNet-18's MC KFAC,
-    captured and eager: the Ritz values against the exact top 40 from the
-    factors' eigenvalues (float64), captured against eager, every small
-    problem through the small-eigh kernel, by both of its routes (the
-    ``[40, 40]`` Gram matrices shared, the ``[120, 120]`` Rayleigh-Ritz
-    matrices global); each route timed on one of the run's matrices and
-    held to float64 ``eigh``;
+16. LOBPCG at k = 40 and k = 100 (``lobpcg_large_k_phases``) on ResNet-18's
+    MC KFAC (k = 100 on the KFAC of its parameters outside layer4: over all
+    of them an eager iteration's ``[n, 300]`` blocks outgrow the card),
+    eager, captured and replayed: the Ritz values against the exact top k
+    from the factors' eigenvalues (float64), captured against eager, ms an
+    iteration, every small problem through the small-eigh kernel's cluster
+    route, counted in the wrapper, and the kernel's device time an
+    iteration and its share; the kernel timed at each size the runs meet
+    (``[40, 40]``, ``[120, 120]``, ``[100, 100]``, ``[300, 300]``) against
+    its plain version and ``torch.linalg.eigh``, and held to float64
+    ``eigh``;
 17. prints a JSON line of the port's own kernels (the small-eigh kernel,
-    which replaces no TPU kernel: the k = 4 run's ``[12, 12]`` matrix, the
-    shared route at ``[40, 40]`` and the global at ``[120, 120]``), a JSON
+    which replaces no TPU kernel: the shared route on the k = 4 run's
+    ``[12, 12]`` matrix, the cluster route at the four sizes above), a JSON
     line of the TPU kernels' results
     and, last, a JSON status line.
 
 Each kernel's bound is the larger of its bytes (each input read once, each
 output written once) at 3.35 TB/s and its float32 products at the card's
 fastest float32-accurate rate, 3xTF32 (495 / 3 TFLOP/s); the small-eigh
-kernel's rotations run on the float32 CUDA cores (67 TFLOP/s), counted from
-its sweeps on this run's matrix.
+kernel's work is float64 (9 n^3 flops a sweep of rotations, counted from
+its sweeps on this run's matrix) at the FP64 tensor cores' 67 TFLOP/s.
 
 TF32 is off throughout: ``torch.backends.cudnn.allow_tf32`` defaults to
 True and would put the plain path's convolutions at three decimal digits.
@@ -222,8 +226,9 @@ CURV_BATCH_SPLIT = 2  # the ResNet batch as this many equal batches
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 495e12 / 3, 3.35e12
 PEAK_NAME = "3xTF32, 495/3 = 165 TFLOP/s; 3.35 TB/s"
 # the port's own kernels, listed in every profile wherever they rank
-PORT_KERNELS = ("cov_tiles_kernel", "reduce_mirror_kernel", "small_eigh_kernel", "flash_fwd_kernel",
-                "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+PORT_KERNELS = ("cov_tiles_kernel", "reduce_mirror_kernel", "shared_eigh_kernel",
+                "cluster_eigh_kernel", "flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                "flash_bwd_dq_kernel")
 
 
 def rel_err(a, b) -> float:
@@ -312,14 +317,10 @@ def device_profile(torch, label: str, fn, top: int = 8, warm: bool = True) -> fl
 
 def _main_kernel(mangled: str) -> str | None:
     """The port kernel a mangled name instantiates, if it is the float32 (head
-    dim 64) instantiation the main paths run (the small-eigh kernel's by
-    route)."""
+    dim 64) instantiation the main paths run."""
     name = next((k for k in PORT_KERNELS if k in mangled), None)
     if name == "reduce_mirror_kernel":  # float32 only
         return name
-    for mark, route in (("IfLb1EE", " (shared)"), ("IfLb0EE", " (global)")):
-        if mark in mangled:
-            return name + route
     return name if "IfEE" in mangled or "IfLi64EE" in mangled else None
 
 
@@ -443,7 +444,7 @@ def main() -> None:
           "GGN diagonal and held linearizations {:.1f}, transformer family {:.1f}, "
           "collector (bias-only, Conv1D layout) {:.1f}, cond-gated GPT and fuzz twins "
           "{:.1f}, data parallelism and prefetch {:.1f}, captured programs {:.1f}, captured "
-          "solvers {:.1f}, bfloat16 {:.1f}, LOBPCG at large k {:.1f}".format(
+          "solvers {:.1f}, bfloat16 {:.1f}, LOBPCG at k = 40 and 100 {:.1f}".format(
               *(b - a for a, b in zip(marks, marks[1:]))))
     # the port's own kernels, which replace no TPU kernel
     print(json.dumps({"port_kernels": [captured_solvers["small_eigh"], *large_k["small_eigh"]]}))
@@ -3451,8 +3452,21 @@ CS_SERIES = 16  # Neumann terms and fast Lanczos steps over KFAC's inverse
 EIGH_TOL = 1e-5  # the small-eigh kernel's eigenvalues against eigh, float32, relative
 EIGH_SUBSPACE_TOL = 1e-4  # its eigenvector clusters' projectors against eigh's
 EIGH_GAP = 1e-2  # eigenvalues closer than this, relative to the largest, form one cluster
-# float32 products outside the tensor cores (the Jacobi kernel's rotations)
-PEAK_F32_SIMT_FLOPS = 67e12
+# up to this n the small-eigh kernel's two routes are close (the cluster route
+# pads n to 64), so LOBPCG's matrices are timed by both
+BOTH_ROUTES_MAX_N = 48
+
+
+def eigh_bound(n: int) -> tuple[float, str]:
+    """The least ms in which the card could give a float32 ``[n, n]``
+    matrix's eigenvalues and eigenvectors, and what sets it: the larger of
+    the bytes (A read, w and V written) at its memory rate and 9 n^3 flops
+    (Golub & Van Loan's count for the symmetric QR algorithm with
+    eigenvectors, whatever the sweeps a Jacobi method takes) at its
+    float32-accurate rate (3xTF32)."""
+    ops_ms = 9 * n**3 / PEAK_F32_FLOPS * 1e3
+    bytes_ms = (2 * n * n + n) * 4 / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
 def cs_report(item: str, **fields) -> None:
@@ -3778,20 +3792,18 @@ def captured_solver_phases(torch, dev, smi: str) -> dict:
     n_sweeps = int(sweeps[0])
     k_ms, p_ms = alternated_ms(lambda: se.small_eigh_plain(M), lambda: se.small_eigh(M), torch)
     lib_ms = time_ms(lambda: torch.linalg.eigh(M), torch)
-    # Jacobi: per sweep n - 1 rounds of n / 2 rotations, each 18 n flops on
-    # two rows and two columns of A and V; bytes: A read, w and V written
-    ops_ms = 9 * 12**3 * n_sweeps / PEAK_F32_SIMT_FLOPS * 1e3
-    bytes_ms = (2 * 12**2 + 12) * 4 / PEAK_BYTES_PER_S * 1e3
-    bound_ms, bound_by = max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
-    entry = {"name": "small_eigh", "route": "cuda",
-             "source": "curvlinops_tpu_torch/solvers/csrc/small_eigh.cu", "replaces": None,
-             "launches": launches, "max_abs_err": worst_abs, "ms": k_ms, "plain_ms": p_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    bound_ms, bound_by = eigh_bound(12)
+    device_ms = graph_device_ms(torch, lambda: se.small_eigh(M))
+    entry = {"name": f"small_eigh ({se.kernel_route(12)} route, [12, 12] float32)",
+             "route": "cuda", "source": "curvlinops_tpu_torch/solvers/csrc/small_eigh.cu",
+             "replaces": None, "launches": launches, "max_abs_err": worst_abs, "ms": k_ms,
+             "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
     cs_report("small_eigh kernel against torch.linalg.eigh, LOBPCG's matrices",
               sizes={n: len(m) for n, m in grams.items()}, eigenvalues_rel_err=worst_w,
               tol=EIGH_TOL, subspace_err=worst_sub, subspace_tol=EIGH_SUBSPACE_TOL,
               sweeps_12=n_sweeps, kernel_ms_12=k_ms, plain_ms_12=p_ms, eigh_ms_12=lib_ms,
-              timing="CUDA events, median of 20, alternated", card=smi)
+              device_ms_12=device_ms, timing="CUDA events, median of 20, alternated; "
+              f"device_ms: a graph of {GRAPH_CALLS} launches", card=smi)
     if not (worst_w <= EIGH_TOL and worst_sub <= EIGH_SUBSPACE_TOL and 12 in grams and 4 in grams):
         raise RuntimeError(f"small_eigh against eigh: eigenvalues {worst_w}, subspaces {worst_sub}")
     del U, U_e, grams, loop
@@ -4150,12 +4162,25 @@ def bf16_phases(torch, dev, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------- #
-# LOBPCG at k = 40 on KFAC: the small-eigh kernel past its old limit
+# LOBPCG at k = 40 and k = 100 on KFAC: the small-eigh kernel's cluster route
 # ---------------------------------------------------------------------- #
-LARGE_K = 40  # [40, 40] Gram and [120, 120] Rayleigh-Ritz problems: both kernel routes
+LARGE_K = 40  # [40, 40] Gram and [120, 120] Rayleigh-Ritz problems
 LARGE_K_ITERS = 40  # the iteration cap: tol = 1e-12 never stops a float32 run
 LARGE_K_RITZ_TOL = 1e-3  # the Ritz values against the exact top k, relative
 LARGE_K_CAPTURED_TOL = 1e-5  # captured against eager, relative
+K100 = 100  # [100, 100] Gram and [300, 300] Rayleigh-Ritz problems
+K100_ITERS = 6  # a few iterations: the phase's time
+# k = 100 runs on the MC KFAC of ResNet-18's parameters outside layer4
+# (2,783,434 of 11,172,042; the same build, 14 conv launches): over all of
+# them one eager LOBPCG iteration's [n, 300] blocks (the old and new X, P, R,
+# [X, P, R], its product and the product's flat copy) outgrow the card's 80 GB
+K100_SKIP = "layer4."
+K100_CONV_LAUNCHES = 14  # layer1-3's convs and their downsamples, less the stem
+# the top 100 Ritz values after 6 iterations from a random start, against the
+# exact top 100, relative (3.4e-4 on an H100: the first iterations settle the
+# top of the spectrum, the last ones converge last)
+K100_RITZ_TOL = 5e-3
+GRAPH_CALLS = 10  # wrapper calls in the graph that times one launch's device time
 
 
 def kfac_top_eigenvalues(torch, kfac, k: int) -> "torch.Tensor":
@@ -4171,125 +4196,222 @@ def kfac_top_eigenvalues(torch, kfac, k: int) -> "torch.Tensor":
     return torch.cat(spectra).topk(k)[0]
 
 
-def lobpcg_large_k_phases(torch, dev, smi: str) -> dict:
-    """LOBPCG at ``k = 40`` on ResNet-18's MC KFAC (B=512, float32; its
-    products are cheap and it is ``capturable``), eager and captured from
-    one start block with ``tol = 1e-12`` and ``LARGE_K_ITERS`` iterations:
-    the 40 Ritz values within ``LARGE_K_RITZ_TOL`` of the exact top 40,
-    captured within ``LARGE_K_CAPTURED_TOL`` of eager, the small problems
-    through both of the kernel's routes (the ``[40, 40]`` Gram matrices
-    shared, the ``[120, 120]`` Rayleigh-Ritz matrices global; launches
-    counted by route in the wrapper, where the host launches: a replay of
-    the captured loop launches without it and adds none). Each route timed
-    on the run's second matrix of its size against the plain version and
-    ``torch.linalg.eigh``, and held to ``eigh`` in float64. Returns the
-    conv launches and the ``port_kernels`` entries of both routes."""
-    from curvlinops_tpu_torch import KFACLinearOperator
-    from curvlinops_tpu_torch.kfac import kernels
-    from curvlinops_tpu_torch.models.resnet import cifar10_resnet18
+def graph_device_ms(torch, fn, calls: int = GRAPH_CALLS) -> float:
+    """One call's device time: a CUDA graph of ``calls`` calls of ``fn``, its
+    median replay of 5 divided by ``calls`` (as inside a captured loop)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, torch, reps=5) / calls
+
+
+def lobpcg_pair(torch, dev, kfac, k: int, iters: int, seed: int):
+    """LOBPCG at block size ``k`` on ``kfac`` from one seeded start block,
+    eager (``topk_eigenpairs(capture=False)``'s loop, with its iteration
+    count), then captured (``capture="auto"``) and captured again (replays
+    only), ``tol = LOBPCG_TOL`` and ``iters`` iterations. Returns the three
+    runs' ``(theta, U)`` (descending) and ms, the eager iterations, the small
+    problems each run solved by size (host calls) with the first two
+    matrices of each size kept, the wrapper's launches by size in each run
+    (its counts set to 0 just before the run),
+    and the chunked loops cached on ``kfac``."""
     from curvlinops_tpu_torch.solvers import eigsh as teigsh
     from curvlinops_tpu_torch.solvers import small_eigh as se
     from curvlinops_tpu_torch.solvers.lanczos import start_vector
-    from curvlinops_tpu_torch.utils.graphs import ChunkedLoop
+    from curvlinops_tpu_torch.utils.graphs import ChunkedLoop, EagerLoop
 
-    problem = cifar10_resnet18(batch_size=BATCH, seed=0, device=dev)
-    kernels.conv_input_covariance.launches = 0
-    kfac, build_ms = timed(torch, lambda: KFACLinearOperator(
-        problem.model, problem.loss_fn, problem.kfac_params, problem.data, fisher_type="mc",
-        check_deterministic=False))
-    conv_launches = kernels.conv_input_covariance.launches
-    exact = kfac_top_eigenvalues(torch, kfac, LARGE_K)
-    print(f"LOBPCG k={LARGE_K} on ResNet-18's MC KFAC ({kfac.shape[0]} parameters, "
-          f"{len(kfac.groups)} groups), B={BATCH}, float32, TF32 off [{smi}]")
-    kernel, kept = teigsh.small_eigh, {}
-    sizes = {"shared": LARGE_K, "global": 3 * LARGE_K}
+    kernel, kept, calls = teigsh.small_eigh, {}, {}
 
-    def keeping(M, *args, **kwargs):  # each timed size's first two matrices
-        if M.shape[-1] in sizes.values() and len(kept.get(M.shape[-1], [])) < 2:
-            kept.setdefault(M.shape[-1], []).append(M.detach().clone())
+    def keeping(M, *args, **kwargs):  # the run's small problems, by size
+        n = M.shape[-1]
+        calls[mode][n] = calls[mode].get(n, 0) + 1
+        if len(kept.get(n, [])) < 2:
+            kept.setdefault(n, []).append(M.detach().clone())
         return kernel(M, *args, **kwargs)
 
-    X0 = start_vector(kfac, torch.Generator(dev).manual_seed(13), (kfac.shape[1], LARGE_K))
-    runs, row = {}, {}
-    launched = dict.fromkeys(sizes, 0)
-    # eager first: the captured loop's graph pool (about 32 GiB at k = 40)
-    # stays cached on the operator, and the eager run's tensors would not fit
-    # beside it
-    for mode, capture in (("eager", False), ("captured", "auto")):
+    def eager():
+        theta, U, it = teigsh.lobpcg_standard(lambda V: kfac @ V, X0, m=iters, tol=LOBPCG_TOL,
+                                              loop=EagerLoop())
+        order = torch.argsort(theta, descending=True)
+        return (theta[order], U[:, order]), it
+
+    X0 = start_vector(kfac, torch.Generator(dev).manual_seed(seed), (kfac.shape[1], k))
+    runs, ms, launched = {}, {}, {}
+    # eager first: the captured loop's graph pool stays cached on the
+    # operator, and the eager run's tensors would not fit beside it
+    for mode in ("eager", "captured", "replayed"):
         torch.cuda.empty_cache()
-        se.small_eigh.route_launches.update(dict.fromkeys(sizes, 0))
+        calls[mode] = {}
+        se.small_eigh.size_launches.clear()
         teigsh.small_eigh = keeping
         try:
-            runs[mode], row[f"{mode}_ms"] = timed(torch, lambda: teigsh.topk_eigenpairs(
-                kfac, LARGE_K, maxiter=LARGE_K_ITERS, tol=LOBPCG_TOL, X0=X0, capture=capture))
+            runs[mode], ms[mode] = timed(torch, eager if mode == "eager" else lambda: (
+                teigsh.topk_eigenpairs(kfac, k, maxiter=iters, tol=LOBPCG_TOL, X0=X0), None))
         finally:
             teigsh.small_eigh = kernel
-        row[f"{mode}_small_eigh_launches"] = dict(se.small_eigh.route_launches)
-        for r in sizes:
-            launched[r] += se.small_eigh.route_launches[r]
+        launched[mode] = dict(se.small_eigh.size_launches)
+    eager_iterations = runs["eager"][1]
+    runs = {mode: run for mode, (run, _) in runs.items()}
     loops = [p for p in kfac._program_cache[1].values() if isinstance(p, ChunkedLoop)]
-    (w_c, U_c), (w_e, _) = runs["captured"], runs["eager"]
-    ritz_err = ((w_c.double() - exact).abs() / exact).max()
-    row.update(
-        iterations=loops[0].iterations if loops else None,
-        host_reads=loops[0].host_reads if loops else None,
-        capture_s=loops[0].capture_seconds if loops else None,
-        ritz_rel_err_max=float(ritz_err),
-        ritz_rel_err_last=float((w_c[-1].double() - exact[-1]).abs() / exact[-1]),
-        captured_vs_eager=rel_err(w_c, w_e),
-        orthonormality=float((U_c.T @ U_c - torch.eye(LARGE_K, device=dev)).abs().max()),
-        exact_first=float(exact[0]), exact_last=float(exact[-1]), kfac_build_ms=build_ms,
-        conv_kernel_launches=conv_launches)
-    cs_report(f"LOBPCG k={LARGE_K}, maxiter {LARGE_K_ITERS}, tol {LOBPCG_TOL}, MC KFAC",
-              ritz_tol=LARGE_K_RITZ_TOL, captured_tol=LARGE_K_CAPTURED_TOL,
-              small_eigh_launches_counted="host launches; a graph replay adds none",
-              card=smi, **row)
-    if not (len(loops) == 1 and conv_launches == RESNET_CONV_LAUNCHES
-            and row["ritz_rel_err_max"] <= LARGE_K_RITZ_TOL
-            and row["captured_vs_eager"] <= LARGE_K_CAPTURED_TOL
-            and all(c > 0 for m in runs for c in row[f"{m}_small_eigh_launches"].values())
-            and all(len(kept.get(n, [])) == 2 for n in sizes.values())):
-        raise RuntimeError(f"LOBPCG k={LARGE_K}: {row}")
-    del runs, U_c, X0, loops, kfac, problem  # a loop holds its graph's pool
-    torch.cuda.empty_cache()
+    return runs, ms, eager_iterations, calls, kept, launched, loops
 
-    # each route on the run's second matrix of its size, against float64
-    # eigh (float32 eigh is itself off by about n eps)
-    entries = []
-    for route, n in sizes.items():
-        M = kept[n][1]
-        w_p, _ = se.small_eigh_plain(M)
-        w_64, V_64 = se.small_eigh_plain(M.double())
-        scale = float(w_64.abs().max())
-        sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
-        w_k, V_k = (t[0] for t in se.small_eigh(M[None], sweeps))
-        n_sweeps = int(sweeps[0])
-        k_ms, p_ms = alternated_ms(lambda: se.small_eigh_plain(M), lambda: se.small_eigh(M),
-                                   torch)
-        lib_ms = time_ms(lambda: torch.linalg.eigh(M), torch)
-        err = rel_err(w_k, w_64)
-        sub = cluster_projector_error(w_k.double(), V_k.double(), w_64, V_64, EIGH_GAP * scale)
-        tol = 20 * n * 2.0**-23  # the card tests' bound, relative
-        # Jacobi: per sweep n - 1 rounds of n / 2 rotations, each 18 n flops on
-        # two rows and two columns of A and V; bytes: A read, w and V written
-        ops_ms = 9 * n**3 * n_sweeps / PEAK_F32_SIMT_FLOPS * 1e3
-        bytes_ms = (2 * n * n + n) * 4 / PEAK_BYTES_PER_S * 1e3
-        bound_ms, bound_by = max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
-        entry = {"name": f"small_eigh ({route} route, [{n}, {n}] float32)", "route": "cuda",
-                 "source": "curvlinops_tpu_torch/solvers/csrc/small_eigh.cu", "replaces": None,
-                 "launches": launched[route],
-                 "max_abs_err": float((w_k.double() - w_64).abs().max()),
-                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                 "library_ms": lib_ms}
-        entries.append(entry)
-        cs_report(f"small_eigh kernel, {route} route, LOBPCG's [{n}, {n}] matrix",
-                  sweeps=n_sweeps, eigenvalues_rel_err_vs_float64=err, tol=tol,
-                  float32_eigh_rel_err_vs_float64=rel_err(w_p, w_64), subspace_err=sub,
-                  subspace_tol=tol / EIGH_GAP, timing="CUDA events, median of 20, alternated",
-                  card=smi, **entry)
-        if not (se.kernel_route(n) == route and err <= tol and sub <= tol / EIGH_GAP):
-            raise RuntimeError(f"small_eigh {route} route against eigh at n = {n}: {entry}")
-    return {"launches": {"conv_input_covariance": conv_launches}, "small_eigh": entries}
+
+def other_route_device_ms(torch, M) -> dict:
+    """The small-eigh route the wrapper does not choose for ``M``: its name,
+    sweeps and one launch's device time (a CUDA graph, as
+    ``graph_device_ms``)."""
+    from curvlinops_tpu_torch.solvers import small_eigh as se
+
+    chosen = se.kernel_route
+    other = "cluster" if chosen(M.shape[-1]) == "shared" else "shared"
+    se.kernel_route = lambda n: other
+    try:
+        sweeps = torch.zeros(1, dtype=torch.int32, device=M.device)
+        se.small_eigh(M[None], sweeps)
+        ms = graph_device_ms(torch, lambda: se.small_eigh(M))
+    finally:
+        se.kernel_route = chosen
+    return {"other_route": other, "other_route_sweeps": int(sweeps[0]),
+            "other_route_device_ms": ms}
+
+
+def small_eigh_entry(torch, dev, M, launches: int, calls: int, label: str, smi: str) -> dict:
+    """The small-eigh kernel on one of LOBPCG's matrices: its ``port_kernels``
+    entry (one host call by CUDA events, median of 20, alternated with the
+    plain version; one launch's device time from a CUDA graph, and by the
+    other route too up to ``BOTH_ROUTES_MAX_N``; ``torch.linalg.eigh``),
+    held to float64 ``eigh``: eigenvalues within ``20 n eps`` and cluster
+    projectors within that over the gap."""
+    from curvlinops_tpu_torch.solvers import small_eigh as se
+
+    n = M.shape[-1]
+    route = se.kernel_route(n)
+    w_p, _ = se.small_eigh_plain(M)
+    w_64, V_64 = se.small_eigh_plain(M.double())
+    scale = float(w_64.abs().max())
+    sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+    w_k, V_k = (t[0] for t in se.small_eigh(M[None], sweeps))
+    n_sweeps = int(sweeps[0])
+    k_ms, p_ms = alternated_ms(lambda: se.small_eigh_plain(M), lambda: se.small_eigh(M), torch)
+    device_ms = graph_device_ms(torch, lambda: se.small_eigh(M))
+    lib_ms = time_ms(lambda: torch.linalg.eigh(M), torch)
+    other = other_route_device_ms(torch, M) if n <= BOTH_ROUTES_MAX_N else {}
+    err = rel_err(w_k, w_64)
+    sub = cluster_projector_error(w_k.double(), V_k.double(), w_64, V_64, EIGH_GAP * scale)
+    tol = 20 * n * 2.0**-23  # the card tests' bound, relative
+    bound_ms, bound_by = eigh_bound(n)
+    entry = {"name": f"small_eigh ({route} route, [{n}, {n}] float32)", "route": "cuda",
+             "source": "curvlinops_tpu_torch/solvers/csrc/small_eigh.cu", "replaces": None,
+             "launches": launches, "max_abs_err": float((w_k.double() - w_64).abs().max()),
+             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": lib_ms}
+    cs_report(f"small_eigh kernel, {route} route, {label}'s [{n}, {n}] matrix",
+              sweeps=n_sweeps, device_ms=device_ms, host_calls=calls,
+              eigenvalues_rel_err_vs_float64=err, tol=tol,
+              float32_eigh_rel_err_vs_float64=rel_err(w_p, w_64), subspace_err=sub,
+              subspace_tol=tol / EIGH_GAP, timing="CUDA events, median of 20, alternated; "
+              f"device_ms: a graph of {GRAPH_CALLS} launches", card=smi, **other, **entry)
+    if not (err <= tol and sub <= tol / EIGH_GAP):
+        raise RuntimeError(f"small_eigh at n = {n} against float64 eigh: {entry}")
+    return {**entry, "device_ms": device_ms}
+
+
+def lobpcg_large_k_phases(torch, dev, smi: str) -> dict:
+    """LOBPCG on ResNet-18's MC KFAC (B=512, float32; its products are cheap
+    and it is ``capturable``) at ``k = 40`` (``LARGE_K_ITERS`` iterations)
+    and at ``k = 100`` (``K100_ITERS``; the KFAC of the parameters outside
+    layer4, ``K100_SKIP``), each eager and captured from one seeded start
+    block with ``tol = 1e-12``: the Ritz values against the exact top k
+    (``LARGE_K_RITZ_TOL``, ``K100_RITZ_TOL``), captured (and a second,
+    replay-only call) against eager (``LARGE_K_CAPTURED_TOL``), ms an
+    iteration, the small-eigh kernel's device time an iteration (its calls
+    by size times one launch's graph-timed device time) and its share. The
+    kernel's launches are counted by size in the wrapper where the host
+    launches (a replay of the captured loop launches without it and adds
+    none); it is timed on each run's second matrix of each size against the plain
+    version and ``torch.linalg.eigh``, and held to ``eigh`` in float64.
+    Returns the conv launches and the ``port_kernels`` entries."""
+    from curvlinops_tpu_torch import KFACLinearOperator
+    from curvlinops_tpu_torch.kfac import kernels
+    from curvlinops_tpu_torch.models.resnet import cifar10_resnet18
+    from curvlinops_tpu_torch.ops.base import LinearOperator
+    from curvlinops_tpu_torch.solvers import small_eigh as se
+
+    problem = cifar10_resnet18(batch_size=BATCH, seed=0, device=dev)
+    print(f"LOBPCG k={LARGE_K} and k={K100} on ResNet-18's MC KFAC, B={BATCH}, float32, "
+          f"TF32 off [{smi}]")
+    entries, conv_total = [], 0
+    for k, iters, ritz_tol, seed, skip, builds in (
+            (LARGE_K, LARGE_K_ITERS, LARGE_K_RITZ_TOL, 13, None, RESNET_CONV_LAUNCHES),
+            (K100, K100_ITERS, K100_RITZ_TOL, 14, K100_SKIP, K100_CONV_LAUNCHES)):
+        params = {n: p for n, p in problem.kfac_params.items()
+                  if skip is None or not n.startswith(skip)}
+        kernels.conv_input_covariance.launches = 0
+        kfac, build_ms = timed(torch, lambda: KFACLinearOperator(
+            problem.model, problem.loss_fn, params, problem.data, fisher_type="mc",
+            check_deterministic=False))
+        conv_launches = kernels.conv_input_covariance.launches
+        conv_total += conv_launches
+        exact = kfac_top_eigenvalues(torch, kfac, k)
+        print(f"  k={k}: {kfac.shape[0]} parameters, {len(kfac.groups)} groups")
+        runs, ms, eager_it, calls, kept, launched, loops = lobpcg_pair(torch, dev, kfac, k, iters,
+                                                                       seed)
+        (w_c, U_c), (w_e, _), (w_r, _) = runs["captured"], runs["eager"], runs["replayed"]
+        top = exact[:k]
+        ritz = (w_c.double() - top).abs() / top
+        loop = loops[0] if len(loops) == 1 else None
+        it = loop.iterations if loop else iters
+        row = dict(
+            k=k, parameters=kfac.shape[0], iterations=it, eager_iterations=eager_it,
+            host_reads=loop.host_reads if loop else None,
+            capture_s=loop.capture_seconds if loop else None,
+            pool_gib=(loop.reserved_bytes[1] - loop.reserved_bytes[0]) / 2**30 if loop else None,
+            eager_ms=ms["eager"], captured_first_ms=ms["captured"], replayed_ms=ms["replayed"],
+            eager_ms_per_iteration=ms["eager"] / eager_it,
+            replayed_ms_per_iteration=ms["replayed"] / it,
+            ritz_rel_err_max=float(ritz.max()), ritz_rel_err_last=float(ritz[-1]),
+            captured_vs_eager=rel_err(w_c, w_e), replayed_vs_captured=rel_err(w_r, w_c),
+            orthonormality=float((U_c.T @ U_c - torch.eye(k, device=dev)).abs().max()),
+            exact_first=float(top[0]), exact_last=float(top[-1]), kfac_build_ms=build_ms,
+            conv_kernel_launches=conv_launches,
+            small_eigh_calls={m: dict(c) for m, c in calls.items()},
+            small_eigh_launches=launched)
+        # the small problems an eager iteration solves, by size: its share
+        per_iteration = {n: c / eager_it for n, c in calls["eager"].items()}
+        sized = {}
+        for n in sorted(calls["eager"]):
+            sized[n] = small_eigh_entry(
+                torch, dev, kept[n][1],
+                launches=sum(launched[m].get(n, 0) for m in launched),
+                calls=sum(calls[m].get(n, 0) for m in calls), label=f"LOBPCG k={k}", smi=smi)
+        kernel_ms = sum(per_iteration[n] * sized[n]["device_ms"] for n in sized)
+        row.update(small_eigh_device_ms_per_iteration=kernel_ms,
+                   small_eigh_share_of_eager_iteration=kernel_ms / row["eager_ms_per_iteration"],
+                   small_eigh_calls_per_iteration=per_iteration)
+        cs_report(f"LOBPCG k={k}, maxiter {iters}, tol {LOBPCG_TOL}, MC KFAC", ritz_tol=ritz_tol,
+                  captured_tol=LARGE_K_CAPTURED_TOL,
+                  small_eigh_launches_counted="host launches; a graph replay adds none",
+                  card=smi, **row)
+        ok = (loop is not None and conv_launches == builds and it == eager_it
+              and row["ritz_rel_err_max"] <= ritz_tol
+              and row["captured_vs_eager"] <= LARGE_K_CAPTURED_TOL
+              and row["replayed_vs_captured"] <= LARGE_K_CAPTURED_TOL
+              and set(calls["eager"]) == {k, 3 * k} and set(calls["captured"]) == {k, 3 * k}
+              and all(launched[m].get(n, 0) > 0 for m in ("eager", "captured")
+                      for n in (k, 3 * k)))
+        del runs, U_c, loops, loop, w_c, w_e, w_r, kept, kfac
+        LinearOperator.invalidate_traced(None)  # frees the captured loop's graph pool
+        torch.cuda.empty_cache()
+        if not ok:
+            raise RuntimeError(f"LOBPCG k={k}: {row}")
+        entries += [{key: v for key, v in e.items() if key != "device_ms"} for e in sized.values()]
+    del problem
+    torch.cuda.empty_cache()
+    return {"launches": {"conv_input_covariance": conv_total}, "small_eigh": entries}
+
 
 if __name__ == "__main__":
     main()

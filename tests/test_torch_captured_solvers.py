@@ -467,29 +467,41 @@ def test_jacobian_held_batches_match_streamed_and_jax_lsmr(jx):
 # ---------------------------------------------------------------------- #
 # LOBPCG's route to its small eigenproblems
 # ---------------------------------------------------------------------- #
-# n: the small-eigh kernel's route, either type. The shared route (256
-# threads, A and V^T in shared memory) to n = 44, where the global route
-# (1024 threads, A and V^T in a device-memory workspace) overtook it on an
-# H100; the global route to 512.
+# n: the small-eigh kernel's route, either type, and the cluster route's
+# CTAs and padded size. The shared route (256 threads, A and V^T in shared
+# memory) to n = 16 and again at 33-38, where it was faster on an H100 than
+# the cluster route (blocked Jacobi, a cluster of ceil(n / 32) CTAs, A and
+# V^T in a device-memory workspace, n padded to a multiple of 32); the
+# cluster route for the others to 512 (16 CTAs, the card's largest cluster).
 KERNEL_ROUTES = {
-    1: "shared", 44: "shared", 45: "global", 96: "global", 97: "global", 118: "global",
-    119: "global", 136: "global", 137: "global", 160: "global", 161: "global", 512: "global",
-    513: None,
+    1: ("shared", 1, 32), 16: ("shared", 1, 32), 17: ("cluster", 1, 32),
+    32: ("cluster", 1, 32), 33: ("shared", 2, 64), 38: ("shared", 2, 64),
+    39: ("cluster", 2, 64), 40: ("cluster", 2, 64), 44: ("cluster", 2, 64),
+    45: ("cluster", 2, 64), 120: ("cluster", 4, 128), 121: ("cluster", 4, 128),
+    256: ("cluster", 8, 256), 257: ("cluster", 9, 288), 300: ("cluster", 10, 320),
+    511: ("cluster", 16, 512), 512: ("cluster", 16, 512), 513: (None, 17, 544),
 }
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("n", sorted(KERNEL_ROUTES))
 def test_small_eigh_kernel_route(n, dtype):
-    """The kernel's route by size, and the size limit that ``small_eigh``
-    enforces on the card (its CPU path takes any size)."""
+    """The kernel's route by size, the cluster route's CTAs and padded size
+    (:func:`cluster_shape`, the workspace the wrapper allocates), and the
+    size limit that ``small_eigh`` enforces on the card (its CPU path takes
+    any size and counts no launch)."""
     from curvlinops_tpu_torch.solvers import small_eigh as se
 
-    assert se.kernel_route(n) == KERNEL_ROUTES[n]
-    assert se.MAX_N == 512 and se.SHARED_MAX_N == 44
+    route, ctas, padded = KERNEL_ROUTES[n]
+    assert se.kernel_route(n) == route
+    assert se.cluster_shape(n) == (ctas, padded)
+    assert se.MAX_N == 512 and se.BLOCK == 16
+    assert se.SHARED_SIZES == (range(1, 17), range(33, 39))
     A = torch.eye(n, dtype=dtype)
+    launches, sizes = se.small_eigh.launches, dict(se.small_eigh.size_launches)
     w, V = se.small_eigh(A)  # the CPU's plain version, descending
     assert w.shape == (n,) and V.shape == (n, n) and bool((w == 1).all())
+    assert se.small_eigh.launches == launches and se.small_eigh.size_launches == sizes
 
 
 def _spectrum_operator(dim: int, k: int, dtype, seed: int):

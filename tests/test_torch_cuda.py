@@ -1450,11 +1450,13 @@ def _cluster_projector_error(w, V, w_ref, V_ref, gap: float) -> float:
 @pytest.mark.cuda
 @pytest.mark.parametrize("repeated", [False, True], ids=["distinct", "repeated"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("n", [3, 12, 44, 45, 48, 96])
+@pytest.mark.parametrize("n", [3, 12, 16, 17, 33, 38, 39, 44, 45, 48, 96, 121])
 def test_small_eigh_kernel_matches_eigh_on_card(cuda, n, dtype, repeated):
     """The Jacobi kernel on a batch of three matrices against
-    ``torch.linalg.eigh`` (descending), by the shared route to n = 44 and
-    the global route past it (one launch, counted on its route): eigenvalues
+    ``torch.linalg.eigh`` (descending), by the shared route to n = 16 and at
+    33-38 and the cluster route for the others (one launch, counted at its
+    size; 33, 39, 45 and 121 are not multiples of the cluster route's
+    32-index pairs): eigenvalues
     within ``20 n eps`` of the largest, residuals ``||A V - V diag(w)||``
     and ``||V^T V - I||`` within ``20 n eps`` (times ``||A||``), and each
     cluster's projector (eigenvalues closer than ``10^-2 ||A||``) within
@@ -1463,12 +1465,12 @@ def test_small_eigh_kernel_matches_eigh_on_card(cuda, n, dtype, repeated):
 
     gen = torch.Generator().manual_seed(n)
     A = torch.stack([_symmetric(n, dtype, repeated, gen) for _ in range(3)]).to(cuda)
-    before, routes = se.small_eigh.launches, dict(se.small_eigh.route_launches)
+    before, sizes = se.small_eigh.launches, dict(se.small_eigh.size_launches)
     w, V = se.small_eigh(A)
     torch.cuda.synchronize()
     assert se.small_eigh.launches == before + 1
-    routes[se.kernel_route(n)] += 1
-    assert se.small_eigh.route_launches == routes
+    sizes[n] = sizes.get(n, 0) + 1
+    assert se.small_eigh.size_launches == sizes
     w_ref, V_ref = se.small_eigh_plain(A)
     tol = 20 * n * torch.finfo(dtype).eps
     for b in range(3):
@@ -1489,10 +1491,11 @@ def test_small_eigh_kernel_matches_eigh_on_card(cuda, n, dtype, repeated):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("n", [97, 128, 160, 161, 300, 512])
+@pytest.mark.parametrize("n", [97, 128, 160, 161, 300, 511, 512])
 def test_small_eigh_kernel_large_n_on_card(cuda, monkeypatch, n, dtype):
-    """The kernel past its old limit of 96, by its global route (A and V^T
-    in a device-memory workspace), on a batch of two matrices against
+    """The kernel past its old limit of 96, by its cluster route (a cluster
+    of ``ceil(n / 32)`` CTAs, A and V^T in a device-memory workspace; 161,
+    300 and 511 pad to a multiple of 32), on a batch of two matrices against
     ``torch.linalg.eigh``:
     eigenvalues within ``20 n eps`` of ``||A||``, ``||A V - V diag(w)||``
     within ``20 n eps ||A||``, and ``||V^T V - I||`` in the spectral norm
@@ -1526,6 +1529,136 @@ def test_small_eigh_kernel_large_n_on_card(cuda, monkeypatch, n, dtype):
         assert bool((wb[:-1] >= wb[1:]).all())
         assert float((Ab @ Vb - Vb * wb).norm()) <= tol * scale
         assert float(torch.linalg.matrix_norm(Vb.T @ Vb - eye, ord=2)) <= tol
+
+
+def _check_eigh(A, w, V, tol: float, gap_rel: float = 1e-2) -> None:
+    """One matrix's eigenpairs against float64 ``eigh``: eigenvalues within
+    ``tol ||A||``, descending, ``||A V - V diag(w)||`` within ``tol ||A||``,
+    ``||V^T V - I||`` (spectral) within ``tol``, and each cluster's projector
+    (eigenvalues closer than ``gap_rel ||A||``) within ``tol ||A||`` over the
+    gap."""
+    n = A.shape[-1]
+    A64, w, V = A.double(), w.double(), V.double()
+    scale = float(A64.norm())
+    w_ref, V_ref = (t.flip(-1) for t in torch.linalg.eigh(A64))
+    assert float((w - w_ref).abs().max()) <= tol * scale
+    assert bool((w[:-1] >= w[1:]).all())
+    assert float((A64 @ V - V * w).norm()) <= tol * scale
+    eye = torch.eye(n, dtype=torch.float64, device=A.device)
+    assert float(torch.linalg.matrix_norm(V.T @ V - eye, ord=2)) <= tol
+    gap = gap_rel * scale
+    assert _cluster_projector_error(w, V, w_ref, V_ref, gap) <= tol * scale / gap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", [(3, 4), (10, 12), (15, 20)], ids=["12", "120", "300"])
+def test_small_eigh_kernel_kronecker_spectrum_on_card(cuda, shape, dtype):
+    """A KFAC-like spectrum: ``kron(B, C)`` of two SPD factors, ``C`` with
+    each eigenvalue twice, turned by a random orthogonal similarity so that
+    no entry is zero: every eigenvalue of the product repeats. The kernel
+    (shared route at 12, cluster route at 120 and 300) within the card
+    tests' ``20 n eps`` and its clusters' projectors against ``eigh``."""
+    from curvlinops_tpu_torch.solvers import small_eigh as se
+
+    b, c = shape
+    n = b * c
+    gen = torch.Generator().manual_seed(n)
+    X = torch.randn((b, b), generator=gen, dtype=torch.float64)
+    B = X @ X.T / b + torch.eye(b, dtype=torch.float64)
+    Qc = torch.linalg.qr(torch.randn((c, c), generator=gen, dtype=torch.float64))[0]
+    C = (Qc * torch.arange(c, dtype=torch.float64).div(2).floor().add(1)) @ Qc.T
+    Q = torch.linalg.qr(torch.randn((n, n), generator=gen, dtype=torch.float64))[0]
+    A = (Q @ torch.kron(B, C) @ Q.T).to(dtype).to(cuda)
+    A = (A + A.T) / 2
+    sweeps = torch.zeros(1, dtype=torch.int32, device=cuda)
+    w, V = se.small_eigh(A[None], sweeps)
+    torch.cuda.synchronize()
+    assert 0 < int(sweeps[0]) < se.MAX_SWEEPS
+    _check_eigh(A, w[0], V[0], 20 * n * torch.finfo(dtype).eps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [12, 120], ids=["shared", "cluster"])
+def test_small_eigh_kernel_special_inputs_on_card(cuda, n):
+    """Inputs that stop before a sweep: a diagonal matrix (eigenvalues its
+    sorted diagonal, eigenvectors the matching unit vectors), the zero
+    matrix (zeros and the identity) and a matrix with a NaN off its
+    diagonal or on it (it stops at once: no hang, the diagonal returned,
+    a NaN ranked first), each at sweep 0, on both routes."""
+    from curvlinops_tpu_torch.solvers import small_eigh as se
+
+    gen = torch.Generator().manual_seed(n)
+    d = torch.randn(n, generator=gen)
+    dense = torch.randn((n, n), generator=gen)
+    off_nan, diag_nan = (dense + dense.T) / 2, (dense + dense.T) / 2
+    off_nan[5, 2] = off_nan[2, 5] = float("nan")
+    diag_nan[3, 3] = float("nan")
+    cases = {"diagonal": torch.diag(d), "zero": torch.zeros((n, n)), "nan off": off_nan,
+             "nan on": diag_nan}
+    sweeps = torch.full((len(cases),), -1, dtype=torch.int32, device=cuda)
+    w, V = se.small_eigh(torch.stack(list(cases.values())).to(cuda), sweeps)
+    torch.cuda.synchronize()
+    assert sweeps.tolist() == [0] * len(cases)
+    order = torch.argsort(d, descending=True)
+    assert torch.equal(w[0].cpu(), d[order])
+    assert torch.equal(V[0].cpu(), torch.eye(n)[:, order])
+    assert torch.equal(w[1].cpu(), torch.zeros(n)) and torch.equal(V[1].cpu(), torch.eye(n))
+    diag = torch.diagonal(off_nan)
+    assert torch.equal(w[2].cpu(), diag[torch.argsort(diag, descending=True)])
+    assert bool(torch.isnan(w[3, 0])) and bool(torch.isfinite(w[3, 1:]).all())
+    assert bool((w[3, 1:-1] >= w[3, 2:]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_small_eigh_kernel_captured_on_card(cuda, dtype):
+    """The cluster route at n = 120 captured in a CUDA graph (one cluster
+    launch, the workspace from the graph's pool) and replayed: the replay
+    equals an eager call to the bit, and its launches were counted at the
+    capture, not at the replay."""
+    from curvlinops_tpu_torch.solvers import small_eigh as se
+
+    gen = torch.Generator().manual_seed(120)
+    A = _symmetric(120, dtype, False, gen).to(cuda)
+    w_e, V_e = se.small_eigh(A)
+    torch.cuda.synchronize()
+    static = A.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm-up off the capturing stream
+        se.small_eigh(static)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = se.small_eigh.size_launches[120]
+    with torch.cuda.graph(graph):
+        w_g, V_g = se.small_eigh(static)
+    assert se.small_eigh.size_launches[120] == before + 1
+    static.copy_(A)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert se.small_eigh.size_launches[120] == before + 1
+    assert torch.equal(w_g, w_e) and torch.equal(V_g, V_e)
+
+
+@pytest.mark.cuda
+def test_small_eigh_kernel_refused_launch_raises_on_card(cuda, monkeypatch):
+    """A cluster launch the kernel refuses (a batch past the grid's 65,535
+    clusters) raises in the wrapper and never reaches
+    ``torch.linalg.eigh``."""
+    from curvlinops_tpu_torch.solvers import small_eigh as se
+
+    def refuse(_):
+        raise AssertionError("small_eigh reached torch.linalg.eigh on the card")
+
+    monkeypatch.setattr(se, "small_eigh_plain", refuse)
+    monkeypatch.setattr(torch.linalg, "eigh", refuse)
+    before = se.small_eigh.launches
+    A = torch.zeros((65536, 17, 17), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        se.small_eigh(A)
+    assert se.small_eigh.launches == before
 
 
 def _known_spectrum(dim: int, k: int, gen):
