@@ -173,7 +173,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     (``[40, 40]``, ``[120, 120]``, ``[100, 100]``, ``[300, 300]``) against
     its plain version and ``torch.linalg.eigh``, and held to float64
     ``eigh``;
-17. prints a JSON line of the port's own kernels (the small-eigh kernel,
+17. ``remat_blocks`` on the stacked models (``remat_phases``, one JSON line
+    per item), float32, every operator streamed: on GPT-2 small (einsum,
+    batch 4, T = 1024) the gradient and the GGN, Hessian, EF and MC Fisher
+    (``mc_samples=2``) matvecs with remat against without (ms by CUDA
+    events, median of 10 with min and max; peak GiB; relative error, gate
+    1e-5; the GGN's and the Hessian's remat peaks must be lower); the GGN
+    and Hessian at batch 16 with remat, and without it where the batch-4
+    no-remat peak scaled by 4 fits the card (else that estimate alone); the stacked flash GPT-2 small's gradient both ways
+    (the flash launches of one gradient: forward 2L with remat, ``dkv`` and
+    ``dq`` L each); ViT-S/4 at batch 512, the GGN matvec both ways;
+18. prints a JSON line of the port's own kernels (the small-eigh kernel,
     which replaces no TPU kernel: the shared route on the k = 4 run's
     ``[12, 12]`` matrix, the cluster route at the four sizes above), a JSON
     line of the TPU kernels' results
@@ -429,6 +439,8 @@ def main() -> None:
     marks.append(time.perf_counter())
     large_k = lobpcg_large_k_phases(torch, dev, smi)
     marks.append(time.perf_counter())
+    remat = remat_phases(torch, dev, smi)
+    marks.append(time.perf_counter())
     for entry in entries:
         entry["launches"] += phase_launches[entry["name"]]
         entry["launches"] += stacked_launches.get(entry["name"], 0)
@@ -439,12 +451,14 @@ def main() -> None:
         entry["launches"] += captured_solvers["launches"].get(entry["name"], 0)
         entry["launches"] += bf16_launches.get(entry["name"], 0)
         entry["launches"] += large_k["launches"].get(entry["name"], 0)
+        entry["launches"] += remat["launches"].get(entry["name"], 0)
     print("phase seconds: ResNet-18 kernel and KFAC {:.1f}, GPT kernels and KFAC {:.1f}, "
           "curvature operators {:.1f}, solvers {:.1f}, KFAC family {:.1f}, estimators, "
           "GGN diagonal and held linearizations {:.1f}, transformer family {:.1f}, "
           "collector (bias-only, Conv1D layout) {:.1f}, cond-gated GPT and fuzz twins "
           "{:.1f}, data parallelism and prefetch {:.1f}, captured programs {:.1f}, captured "
-          "solvers {:.1f}, bfloat16 {:.1f}, LOBPCG at k = 40 and 100 {:.1f}".format(
+          "solvers {:.1f}, bfloat16 {:.1f}, LOBPCG at k = 40 and 100 {:.1f}, remat_blocks "
+          "{:.1f}".format(
               *(b - a for a, b in zip(marks, marks[1:]))))
     # the port's own kernels, which replace no TPU kernel
     print(json.dumps({"port_kernels": [captured_solvers["small_eigh"], *large_k["small_eigh"]]}))
@@ -2357,7 +2371,8 @@ def transformer_phases(torch, dev, smi: str) -> dict:
 
     # ---- the stacked flash GPT against the unrolled one ----------------- #
     t0 = time.perf_counter()
-    stacked = gpt(attention_impl="flash", scan_blocks=True, include_embeddings=True)
+    stacked = gpt(attention_impl="flash", scan_blocks=True, remat_blocks=False,
+                  include_embeddings=True)
     unrolled = gpt(attention_impl="flash", include_embeddings=True)
     torch.cuda.synchronize()
     X = stacked.data[0][0]
@@ -2522,7 +2537,7 @@ def transformer_phases(torch, dev, smi: str) -> dict:
     # ---- ViT-S/4 on CIFAR-10, unrolled and stacked ----------------------- #
     vit_config = VIT_CONFIG or ViTConfig()
     vits = {form: cifar10_vit(VIT_BATCH, vit_config, seed=0, device=dev,
-                              scan_blocks=form == "stacked")
+                              scan_blocks=form == "stacked", remat_blocks=False)
             for form in ("unrolled", "stacked")}
     Xv = vits["stacked"].data[0][0]
     with torch.no_grad():
@@ -2579,9 +2594,10 @@ def transformers_card_against_cpu(torch, dev) -> float:
     builds = {
         "tiny stacked GPT with embeddings": lambda device: shakespeare_nanogpt(
             2, TINY_GPT, dtype=torch.float64, device=device, scan_blocks=True,
-            include_embeddings=True),
+            remat_blocks=False, include_embeddings=True),
         "tiny stacked ViT": lambda device: cifar10_vit(
-            8, TINY_VIT, dtype=torch.float64, device=device, scan_blocks=True),
+            8, TINY_VIT, dtype=torch.float64, device=device, scan_blocks=True,
+            remat_blocks=False),
     }
     worst = 0.0
     for name, build in builds.items():
@@ -4411,6 +4427,189 @@ def lobpcg_large_k_phases(torch, dev, smi: str) -> dict:
     del problem
     torch.cuda.empty_cache()
     return {"launches": {"conv_input_covariance": conv_total}, "small_eigh": entries}
+
+
+# ---------------------------------------------------------------------- #
+# remat_blocks: the stacked blocks rematerialised under the transforms
+# ---------------------------------------------------------------------- #
+REMAT_REPS = 10  # timed calls of each product and mode at batch GPT_BATCH
+REMAT_LARGE_BATCH = 16  # GPT-2 small's batch for the GGN and Hessian with remat
+REMAT_LARGE_REPS = 3  # timed calls at that batch
+REMAT_TOL = 1e-5  # remat against no remat, relative: the same ops, float32
+
+
+def remat_report(item: str, **fields) -> None:
+    """One JSON line of the remat phase."""
+    print(json.dumps({"remat_phase": item, **fields}))
+
+
+def remat_vector(out) -> "torch.Tensor":
+    """A product's tree, or a ``(gradient, loss)`` pair, as one float64 vector."""
+    import torch
+
+    if isinstance(out, tuple):
+        return torch.cat([flat(out[0]), out[1].double().reshape(1)])
+    return flat(out)
+
+
+def remat_measure(torch, call, reps: int) -> dict:
+    """One warm call of ``call`` (its result kept on the host, as one
+    float64 vector, so that it adds nothing to later peaks), the peak
+    allocated GiB of a second call (the peak reset before it), and CUDA-event
+    ms of ``reps`` more calls (median, min and max)."""
+    out = remat_vector(call()).cpu()
+    peak = peak_gib(torch, call)
+    times = event_times(call, torch, reps=reps, warmups=0)
+    return {"out": out, "peak_gib": peak, "ms": statistics.median(times),
+            "ms_range": [min(times), max(times)]}
+
+
+def remat_pair(torch, model, calls: dict, label: str, smi: str, gate_peak=()) -> dict:
+    """Each of ``calls`` (``name -> () -> a product's tree or a (gradient,
+    loss) pair``) with
+    ``model.remat_blocks`` False, then True: ms, peak GiB and the relative
+    error between the two results (gate ``REMAT_TOL``); for the names in
+    ``gate_peak`` a remat peak not below the no-remat peak is fatal."""
+    runs = {}
+    for remat in (False, True):
+        model.remat_blocks = remat
+        runs[remat] = {name: remat_measure(torch, call, REMAT_REPS) for name, call in calls.items()}
+        torch.cuda.empty_cache()
+    rows = {}
+    for name in calls:
+        plain, remat = runs[False][name], runs[True][name]
+        rows[name] = {
+            "ms_no_remat": plain["ms"], "ms_no_remat_range": plain["ms_range"],
+            "ms_remat": remat["ms"], "ms_remat_range": remat["ms_range"],
+            "ms_ratio": remat["ms"] / plain["ms"],
+            "peak_gib_no_remat": plain["peak_gib"], "peak_gib_remat": remat["peak_gib"],
+            "rel_err": rel_err(remat["out"], plain["out"]),
+        }
+        remat_report(f"{label}: {name}", **rows[name], reps=REMAT_REPS, tol=REMAT_TOL, card=smi)
+    del runs
+    torch.cuda.empty_cache()
+    bad = {n: r for n, r in rows.items() if not r["rel_err"] <= REMAT_TOL
+           or (n in gate_peak and not r["peak_gib_remat"] < r["peak_gib_no_remat"])}
+    if bad:
+        raise RuntimeError(f"remat {label}: {bad}")
+    return rows
+
+
+def remat_phases(torch, dev, smi: str) -> dict:
+    """``remat_blocks`` True against False on the stacked models, float32,
+    TF32 off, every gate fatal: GPT-2 small (einsum) at batch
+    ``GPT_BATCH``, the gradient and the GGN, Hessian, EF and MC Fisher
+    (``mc_samples=2``) matvecs (ms, peak GiB, error; the GGN's and the
+    Hessian's remat peaks must be lower); its GGN and Hessian at batch
+    ``REMAT_LARGE_BATCH`` with remat, and without it where the no-remat
+    peak, scaled from batch ``GPT_BATCH``, fits the card; the flash GPT-2 small's gradient
+    (the flash launches of one remat gradient counted from 0: forward 2L,
+    ``dkv`` and ``dq`` L each); ViT-S/4 at ``VIT_BATCH``, the GGN matvec.
+    Every operator streams (``fuse_batches = False``): a captured program's
+    pool would hold its peak between calls. Returns the flash launches."""
+    from curvlinops_tpu_torch import EFLinearOperator, GGNLinearOperator, HessianLinearOperator
+    from curvlinops_tpu_torch.models import flash_attention as fa
+    from curvlinops_tpu_torch.models import gpt as tgpt
+    from curvlinops_tpu_torch.models.vit import ViTConfig, cifar10_vit
+    from curvlinops_tpu_torch.utils.flatten import tree_randn_like
+
+    config = GPT_CONFIG or tgpt.GPTConfig()
+    L = config.n_layer
+    products = {"GGN": (GGNLinearOperator, {}), "Hessian": (HessianLinearOperator, {}),
+                "EF": (EFLinearOperator, {}), "MC Fisher": (GGNLinearOperator, {"mc_samples": 2})}
+
+    def streamed(problem, cls, **kw):
+        A = cls(problem.model, problem.loss_fn, problem.params, problem.data,
+                check_deterministic=False, **kw)
+        A.fuse_batches = False
+        return A
+
+    def matvec_call(A, v):
+        return lambda: A @ v
+
+    # ---- GPT-2 small, einsum, batch GPT_BATCH ---------------------------- #
+    gpt = tgpt.shakespeare_nanogpt(GPT_BATCH, config, seed=0, device=dev, attention_impl="einsum",
+                                   scan_blocks=True)
+    calls = {}
+    for name, (cls, kw) in products.items():
+        A = streamed(gpt, cls, **kw)
+        v = tree_randn_like(torch.Generator(dev).manual_seed(5), A.in_spec)
+        calls[name] = matvec_call(A, v)
+    calls["gradient and loss"] = streamed(gpt, GGNLinearOperator).gradient_and_loss
+    gpt_rows = remat_pair(torch, gpt.model, calls, f"GPT-2 small, einsum, batch {GPT_BATCH}",
+                          smi, gate_peak=("GGN", "Hessian"))
+    del gpt, calls, A, v
+    torch.cuda.empty_cache()
+
+    # ---- GPT-2 small at REMAT_LARGE_BATCH --------------------------------- #
+    # with remat; without it only where the batch-GPT_BATCH no-remat peak,
+    # scaled with the batch, stays below the card's memory
+    large = tgpt.shakespeare_nanogpt(REMAT_LARGE_BATCH, config, seed=0, device=dev,
+                                     attention_impl="einsum", scan_blocks=True)
+    card_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    large_rows = {}
+    for name in ("GGN", "Hessian"):
+        estimate = gpt_rows[name]["peak_gib_no_remat"] * REMAT_LARGE_BATCH / GPT_BATCH
+        cls, kw = products[name]
+        A = streamed(large, cls, **kw)
+        v = tree_randn_like(torch.Generator(dev).manual_seed(5), A.in_spec)
+        run = remat_measure(torch, matvec_call(A, v), REMAT_LARGE_REPS)
+        row = dict(run, finite=bool(torch.isfinite(run["out"]).all()),
+                   no_remat_peak_gib_estimate=estimate, card_gib=card_gib)
+        if estimate < card_gib:
+            large.model.remat_blocks = False
+            try:
+                plain = remat_measure(torch, matvec_call(A, v), REMAT_LARGE_REPS)
+                row.update(no_remat_peak_gib=plain["peak_gib"], no_remat_ms=plain["ms"],
+                           rel_err=rel_err(run["out"], plain["out"]))
+            except torch.cuda.OutOfMemoryError:
+                row["no_remat"] = "out of memory"
+            large.model.remat_blocks = True
+        else:
+            row["no_remat"] = "not run: the estimate exceeds the card's memory"
+        del row["out"]
+        large_rows[name] = row
+        remat_report(f"GPT-2 small, einsum, batch {REMAT_LARGE_BATCH}: {name}", **row,
+                     reps=REMAT_LARGE_REPS, card=smi)
+        del A, v, run
+        torch.cuda.empty_cache()
+        if not row["finite"] or not row.get("rel_err", 0.0) <= REMAT_TOL:
+            raise RuntimeError(f"remat {name} at batch {REMAT_LARGE_BATCH}: {row}")
+    del large
+    torch.cuda.empty_cache()
+
+    # ---- the flash GPT-2 small's gradient ------------------------------- #
+    flash = tgpt.shakespeare_nanogpt(GPT_BATCH, config, seed=0, device=dev, attention_impl="flash",
+                                     scan_blocks=True)
+    G = streamed(flash, GGNLinearOperator)
+    counted = {}
+    for remat in (False, True):
+        flash.model.remat_blocks = remat
+        for n in fa.launches:
+            fa.launches[n] = 0
+        G.gradient_and_loss()
+        torch.cuda.synchronize()
+        counted[remat] = dict(fa.launches)
+    flash_rows = remat_pair(torch, flash.model, {"gradient and loss": G.gradient_and_loss},
+                            f"GPT-2 small, flash, batch {GPT_BATCH}", smi)
+    remat_report("flash launches of one gradient", remat=counted[True], no_remat=counted[False],
+                 expected_remat={"fwd": 2 * L, "bwd_dkv": L, "bwd_dq": L})
+    if counted[True] != {"fwd": 2 * L, "bwd_dkv": L, "bwd_dq": L} or \
+            counted[False] != {"fwd": L, "bwd_dkv": L, "bwd_dq": L}:
+        raise RuntimeError(f"flash launches of one gradient: {counted}")
+    del flash, G
+    torch.cuda.empty_cache()
+
+    # ---- ViT-S/4 on CIFAR-10 -------------------------------------------- #
+    vit = cifar10_vit(VIT_BATCH, VIT_CONFIG or ViTConfig(), seed=0, device=dev, scan_blocks=True)
+    A = streamed(vit, GGNLinearOperator)
+    v = tree_randn_like(torch.Generator(dev).manual_seed(5), A.in_spec)
+    vit_rows = remat_pair(torch, vit.model, {"GGN": matvec_call(A, v)},
+                          f"ViT-S/4, batch {VIT_BATCH}", smi)
+    del vit, A, v
+    torch.cuda.empty_cache()
+    return {"launches": {f"flash_attention_{n}": c for n, c in counted[True].items()},
+            "rows": {"gpt": gpt_rows, "large": large_rows, "flash": flash_rows, "vit": vit_rows}}
 
 
 if __name__ == "__main__":

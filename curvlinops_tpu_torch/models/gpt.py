@@ -15,8 +15,13 @@ attention uses no parameters.
 whose leaves carry a leading ``n_layer`` axis): one block ``h`` with
 :class:`~curvlinops_tpu_torch.models.stack.StackedLinear` layers and stacked
 norms, applied by :func:`~curvlinops_tpu_torch.models.stack.scan` (same
-math, KFAC factors batched over the stack). ``remat_blocks`` checkpoints
-each block of that loop (see ``models/stack.py`` for where it does not).
+math, KFAC factors batched over the stack). ``remat_blocks`` (the default,
+as in ``gpt_apply``) rematerialises each block of that loop, the port's
+``jax.checkpoint``: reverse mode keeps only the block inputs and recomputes
+each block in its pullback, under plain autograd and under the
+``torch.func`` transforms of the curvature operators alike (see
+``models/stack.py``; the KFAC collector's forward runs the loop without
+it). The unrolled model has no remat.
 
 ``attention_impl``:
 
@@ -169,7 +174,7 @@ class GPT(nn.Module):
         ValueError: For an unknown ``attention_impl``.
     """
 
-    def __init__(self, config: GPTConfig, scan_blocks: bool = False, remat_blocks: bool = False):
+    def __init__(self, config: GPTConfig, scan_blocks: bool = False, remat_blocks: bool = True):
         super().__init__()
         if config.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}.")
@@ -237,7 +242,7 @@ def shakespeare_nanogpt(
     device="cuda",
     attention_impl: str | None = None,
     scan_blocks: bool = False,
-    remat_blocks: bool = False,
+    remat_blocks: bool = True,
     include_embeddings: bool = False,
 ) -> Problem:
     """Synthetic-Shakespeare nanoGPT problem (random tokens, next-token CE).
@@ -246,7 +251,7 @@ def shakespeare_nanogpt(
     (``"flash"`` = the Hopper kernels, reverse mode only; ``"fused"`` =
     SDPA's math backend). ``scan_blocks=True`` stacks the blocks into one
     scanned block (same weights as the unrolled form of the seed), which
-    ``remat_blocks`` checkpoints block by block. KFAC
+    ``remat_blocks`` (default ``True``) rematerialises block by block. KFAC
     covers the four dense layers of every block (``kfac_restricted``), and
     with ``include_embeddings`` the ``wte``/``wpe`` tables; the norms and the
     50304-wide ``lm_head`` stay in the module.

@@ -13,7 +13,8 @@ attention. The head ``fc`` reads the CLS position after ``ln_f``.
 KFAC covers the patch conv, the four dense layers of every block and the
 head (``kfac_restricted``); the CLS token, the position table and the norms
 stay in the module. ``scan_blocks=True`` stacks the encoder blocks into one
-scanned block, as in ``models/gpt.py`` (without ``remat_blocks``).
+scanned block, as in ``models/gpt.py``, and ``remat_blocks`` (the default,
+as in ``vit_apply``) rematerialises each block of it (``models/stack.py``).
 """
 
 from __future__ import annotations
@@ -52,9 +53,9 @@ class ViTConfig:
 class ViT(nn.Module):
     """Forward pass ``[B, C_in, H, W]`` images -> ``[B, num_classes]`` logits."""
 
-    def __init__(self, config: ViTConfig, scan_blocks: bool = False):
+    def __init__(self, config: ViTConfig, scan_blocks: bool = False, remat_blocks: bool = True):
         super().__init__()
-        self.config, self.scan_blocks = config, scan_blocks
+        self.config, self.scan_blocks, self.remat_blocks = config, scan_blocks, remat_blocks
         C, P = config.n_embd, config.patch_size
         self.conv_patch = nn.Conv2d(config.in_channels, C, P, stride=P, padding=0)
         self.cls = nn.Parameter(torch.zeros(1, 1, C))
@@ -72,7 +73,7 @@ class ViT(nn.Module):
         x = self.conv_patch(images).flatten(2).transpose(1, 2)  # [B, N, C]
         x = torch.cat([self.cls.expand(B, -1, -1), x], dim=1) + self.pos
         if self.scan_blocks:
-            x = scan(self.h, x, self.config.n_layer)
+            x = scan(self.h, x, self.config.n_layer, remat=self.remat_blocks)
         else:
             for i in range(self.config.n_layer):
                 x = getattr(self, f"h{i}")(x)
@@ -118,15 +119,18 @@ def cifar10_vit(
     dtype=torch.float32,
     device="cuda",
     scan_blocks: bool = False,
+    remat_blocks: bool = True,
 ) -> Problem:
     """ViT-S/4 on synthetic CIFAR-10 (3x32x32 uniform images, 10 classes).
 
-    ``scan_blocks=True`` stacks the encoder blocks into one scanned block.
+    ``scan_blocks=True`` stacks the encoder blocks into one scanned block,
+    which ``remat_blocks`` rematerialises block by block.
     """
     config = config or ViTConfig()
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     model = init_vit(config, gen, dtype, device, scan_blocks)
+    model.remat_blocks = remat_blocks
     hw = config.image_size
     X = torch.rand((batch_size, config.in_channels, hw, hw), generator=gen, dtype=dtype).to(device)
     y = torch.randint(0, config.num_classes, (batch_size,), generator=gen).to(device)

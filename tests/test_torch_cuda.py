@@ -1867,3 +1867,91 @@ def test_host_read_in_a_step_raises_naming_the_program_on_card(cuda):
     assert float(torch.ones(3, device=cuda).sum()) == 3.0
     w, _ = topk_eigenpairs(A, 2, maxiter=5, capture=False)
     assert torch.isfinite(w).all()
+
+
+# ---------------------------------------------------------------------- #
+# remat_blocks on the card
+# ---------------------------------------------------------------------- #
+# a mid-sized stacked GPT: head dim 64, a small vocabulary so that the
+# blocks' internals, not the logits, set the peak
+_REMAT_GPT = tgpt.GPTConfig(block_size=512, vocab_size=512, n_layer=4, n_head=4, n_embd=256)
+
+
+def _remat_problem(cuda, remat: bool, impl: str = "einsum", config=_REMAT_GPT, batch: int = 4):
+    return tgpt.shakespeare_nanogpt(batch, config, seed=0, device=cuda, attention_impl=impl,
+                                    scan_blocks=True, remat_blocks=remat)
+
+
+def _peak_bytes(fn):
+    """The device memory a call of ``fn`` allocates at its peak, above what
+    was allocated before it, and its result."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["ggn", "hessian"])
+def test_remat_lowers_peak_memory_on_card(cuda, op):
+    """The stacked einsum GPT (4 layers, width 256, T = 512, B = 4): the
+    streamed GGN and Hessian matvecs peak lower with remat than without, and
+    agree to 1e-5 (float32)."""
+    cls = {"ggn": GGNLinearOperator, "hessian": HessianLinearOperator}[op]
+    peaks, outs = {}, {}
+    for remat in (False, True):
+        p = _remat_problem(cuda, remat)
+        A = cls(p.model, p.loss_fn, p.params, p.data, check_deterministic=False)
+        A.fuse_batches = False
+        gen = torch.Generator().manual_seed(3)
+        v = {n: torch.randn(t.shape, generator=gen).to(cuda) for n, t in p.params.items()}
+        A @ v  # warm: the first call's one-off allocations
+        peaks[remat], out = _peak_bytes(lambda: A @ v)
+        outs[remat] = _flat(out)
+        del p, A, v, out
+    assert peaks[True] < peaks[False], peaks
+    assert rel_err(outs[True], outs[False]) < 1e-5
+
+
+@pytest.mark.cuda
+def test_remat_flash_gpt_gradient_launches_on_card(cuda):
+    """The stacked flash GPT's streamed gradient with remat launches the
+    flash forward 2L times (the forward, then each block's recompute in the
+    pullback) and ``dkv``/``dq`` L times each, and equals the gradient
+    without remat (L forward launches) to 1e-5."""
+    L = _REMAT_GPT.n_layer
+    grads = {}
+    for remat in (True, False):
+        p = _remat_problem(cuda, remat, "flash")
+        G = GGNLinearOperator(p.model, p.loss_fn, p.params, p.data, check_deterministic=False)
+        G.fuse_batches = False
+        for n in tfa.launches:
+            tfa.launches[n] = 0
+        g, loss = G.gradient_and_loss()
+        torch.cuda.synchronize()
+        expected = {"fwd": 2 * L if remat else L, "bwd_dkv": L, "bwd_dq": L}
+        assert tfa.launches == expected, (remat, tfa.launches)
+        grads[remat] = torch.cat([_flat(g), loss.reshape(1)])
+    assert rel_err(grads[True], grads[False]) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["ggn", "hessian"])
+def test_remat_captured_matches_streamed_on_card(cuda, op):
+    """The remat GPT's captured (``fuse_batches="auto"``) matvec against its
+    streamed twin: one CUDA graph of the rematerialised blocks, float32."""
+    cls = {"ggn": GGNLinearOperator, "hessian": HessianLinearOperator}[op]
+    p = _remat_problem(cuda, True, config=_STACKED_GPT, batch=2)
+    fused, streamed = (cls(p.model, p.loss_fn, p.params, p.data, check_deterministic=False)
+                       for _ in range(2))
+    streamed.fuse_batches = False
+    gen = torch.Generator().manual_seed(4)
+    v = {n: torch.randn(t.shape, generator=gen).to(cuda) for n, t in p.params.items()}
+    out = _flat(fused @ v)
+    assert fused._batch_fn_cache["fused_state"][0] == "single"
+    assert fused._program_cache[1][("fused_matmat", 1, torch.float32)]._graph is not None
+    assert rel_err(_flat(fused @ v), out) == 0.0
+    assert rel_err(out, _flat(streamed @ v)) < 1e-5

@@ -224,25 +224,33 @@ def test_fused_gpt_curvature_matches_jax(op_name):
 
 
 def test_remat_blocks_factors_and_ggn_unchanged():
-    """``remat_blocks`` on the stacked GPT: the same KFAC factors (the
-    collector's forward runs the loop without recomputation) and the same
-    GGN matvec (``torch.func`` transforms run it without checkpointing)."""
-    results = []
-    for remat in (False, True):
-        problem = tgpt.shakespeare_nanogpt(
+    """``remat_blocks`` on the stacked GPT and the stacked ViT: the same KFAC
+    factors (the collector's forward runs the loop without recomputation)
+    and the same GGN matvec (its ``torch.func`` transforms recompute each
+    block in the pullback; ``tests/test_torch_remat.py`` counts the
+    recomputes)."""
+    builds = {
+        "gpt": lambda remat: tgpt.shakespeare_nanogpt(
             batch_size=BATCH, config=tgpt.TINY_GPT, device="cpu", scan_blocks=True,
-            remat_blocks=remat, include_embeddings=True,
-        )
-        assert problem.model.remat_blocks is remat
-        kfac = KFACLinearOperator(problem.model, problem.loss_fn, problem.kfac_params,
-                                  problem.data, fisher_type="mc", mc_samples=2)
-        ggn = GGNLinearOperator(problem.model, problem.loss_fn, problem.params, problem.data)
-        v = torch.randn(ggn.shape[1], generator=torch.Generator().manual_seed(0))
-        results.append((kfac._aaT, kfac._ggT, ggn @ v))
-    (a0, g0, m0), (a1, g1, m1) = results
-    assert all(torch.equal(a0[k], a1[k]) for k in a0)
-    assert all(torch.equal(g0[k], g1[k]) for k in g0)
-    assert torch.allclose(m0, m1, rtol=1e-6, atol=1e-7)
+            remat_blocks=remat, include_embeddings=True),
+        "vit": lambda remat: tvit.cifar10_vit(
+            batch_size=BATCH, config=tvit.TINY_VIT, device="cpu", scan_blocks=True,
+            remat_blocks=remat),
+    }
+    for build in builds.values():
+        results = []
+        for remat in (False, True):
+            problem = build(remat)
+            assert problem.model.remat_blocks is remat
+            kfac = KFACLinearOperator(problem.model, problem.loss_fn, problem.kfac_params,
+                                      problem.data, fisher_type="mc", mc_samples=2)
+            ggn = GGNLinearOperator(problem.model, problem.loss_fn, problem.params, problem.data)
+            v = torch.randn(ggn.shape[1], generator=torch.Generator().manual_seed(0))
+            results.append((kfac._aaT, kfac._ggT, ggn @ v))
+        (a0, g0, m0), (a1, g1, m1) = results
+        assert all(torch.equal(a0[k], a1[k]) for k in a0)
+        assert all(torch.equal(g0[k], g1[k]) for k in g0)
+        assert torch.allclose(m0, m1, rtol=1e-6, atol=1e-7)
 
 
 def test_remat_recomputes_under_plain_autograd():
